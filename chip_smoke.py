@@ -6,16 +6,25 @@ NVIDIA card.
 
 Phases, one JSON line each (any failure exits non-zero):
   1. env      torch/CUDA versions, the card, nvidia-smi name + power limit
-  2. build    nvcc build (or load) of csrc/pdhg_chunk.cu
+  2. build    nvcc build (or load) of csrc/pdhg_chunk.cu, and what ptxas
+              reports for each instantiated variant (registers, spills,
+              stack); the main path's f32 variant must not spill
   3. kernel   the PDHG chunk kernel against its plain torch twin at the
               main path's shapes (farmer S=1000, crops_multiplier=10:
-              M=61, N=120; n_steps=40), f32 and f64, with timings and
-              the bound
+              M=61, N=120; n_steps=40) with A stored in f32, f64 and
+              bf16 (f32 vectors), with timings, the bound, the variant
+              taken, resident blocks per SM and waves
   4. slice    PH on farmer at full width (S=1000, crops_multiplier=10,
               f32, the bench's accelerator options): Iter0, a few PH
               iterations, one xhat inner bound and one Lagrangian outer
-              bound; every solve must go through the kernel
-  5. golden   farmer-3 in f64 through ph_main: E[obj] = -108390 +- 20,
+              bound, the bench's gap loop and a profiled window; every
+              solve must go through the kernel, and the (S, M, N, dtype)
+              shapes it launched with are listed
+  5. bf16x    the same farmer batch with pdhg_hot_dtype="bf16x": Iter0
+              (promoted to full precision at pdhg_eps=1e-5), 2 PH
+              iterations on the eps ladder in bf16 storage, one xhat and
+              one Lagrangian bound
+  6. golden   farmer-3 in f64 through ph_main: E[obj] = -108390 +- 20,
               xbar ~ (170, 80, 250)
 Then the kernels line, the nvidia-smi line, and the result line.
 
@@ -25,7 +34,11 @@ printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -35,6 +48,14 @@ import numpy as np
 
 S, CM, N_STEPS = 1000, 10, 40
 PH_ITERS = 4
+BF16X_PH_ITERS = 2
+# the bench's accelerator options (bench.py:1252-1294) for farmer
+SLICE_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": PH_ITERS,
+              "convthresh": 0.0, "pdhg_eps": 1e-5, "superstep_eps": 1e-4,
+              "lagrangian_eps": 1e-4, "pdhg_max_iters": 30000,
+              "no_split_prep": True,
+              "eps_ladder": {"start": 1e-3, "min": 1e-4, "couple": 0.1},
+              "pdhg_hot_dtype": "f32"}
 
 # H100 rates used for the bound (NVIDIA data sheets, dense, no sparsity):
 # (memory bytes/s, FP32 non-tensor FLOP/s, FP64 non-tensor FLOP/s)
@@ -45,11 +66,12 @@ PEAKS = {
 
 # Kernel-vs-twin tolerance, as max|kernel - twin| / max(1, max|twin|):
 # both do the same arithmetic in the same order except the summation
-# order inside the two matvecs (and FMA contraction in the kernel);
-# over 40 steps that is ~1e-13 relative in f64 and, in f32, up to a few
-# hundred ulp of the largest iterate (the chunk amplifies rounding by
-# the number of steps and the row length).
-TOL = {"float64": 1e-9, "float32": 2e-4}
+# order inside the two matvecs; over 40 steps that is ~1e-13 relative
+# in f64 and, in f32, up to a few hundred ulp of the largest iterate
+# (the chunk amplifies rounding by the number of steps and the row
+# length).  With A in bf16 both cast the same bf16 values up and run in
+# f32, so bf16 has f32's tolerance.
+TOL = {"float64": 1e-9, "float32": 2e-4, "bfloat16": 2e-4}
 
 
 def check(cond, msg):
@@ -77,13 +99,16 @@ def peaks(name):
     return "H100", PEAKS["H100"]
 
 
-def time_ms(fn, reps=5, batch=20, warmup=3):
+def time_ms(fn, reps=5, batch=20, warmup=3, queue_behind_sleep=False):
     """Median over `reps` runs of the mean time per call of `batch`
     back-to-back calls between two CUDA events, after warmup.  Events
     around a single call would also count the host's time to reach the
     launch (the wrapper's checks, the ctypes call), while the device
-    waits; back to back, the launch queue hides it whenever the device
-    work is the longer of the two."""
+    waits.  queue_behind_sleep: first put a spin kernel of 8e6 clock
+    cycles (4 ms at 2 GHz) on the stream, so that the host enqueues all
+    `batch` calls while the device is still busy; the events then
+    bracket device work alone even when one call's device work is
+    shorter than its host cost."""
     import torch
     for _ in range(warmup):
         fn()
@@ -92,6 +117,8 @@ def time_ms(fn, reps=5, batch=20, warmup=3):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queue_behind_sleep:
+            torch.cuda._sleep(8_000_000)
         a.record()
         for _ in range(batch):
             fn()
@@ -99,6 +126,128 @@ def time_ms(fn, reps=5, batch=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def host_us(fn, n=50):
+    """Host time per call of `fn` (enqueue only: no synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+def template_args(mangled):
+    """The template arguments of a mangled `pdhg_chunk_tiled<...>` name
+    (Itanium ABI: f float, d double, <len><name> a class, Li<n>E an
+    int), or None for another kernel."""
+    i = mangled.find("pdhg_chunk_tiledI")
+    if i < 0:
+        return None
+    rest, args = mangled[i + len("pdhg_chunk_tiledI"):], []
+    while rest and rest[0] != "E":
+        m = re.match(r"Li(-?\d+)E|(\d+)|([fd])", rest)
+        if m is None:
+            return None
+        if m.group(1) is not None:
+            args.append(m.group(1))
+        elif m.group(3) is not None:
+            args.append({"f": "float", "d": "double"}[m.group(3)])
+        else:
+            n = int(m.group(2))
+            args.append(rest[m.end():m.end() + n])
+            rest = rest[n:]
+        rest = rest[m.end():]
+    return args
+
+
+def ptxas_report(log):
+    """What `nvcc -Xptxas -v` said about each kernel: its template
+    arguments (storage, compute, rows per thread, column vectors per
+    lane, warps, source of A: 0 registers / 1 shared / 2 global, min
+    blocks per SM), registers, stack, spill stores and loads."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"mangled": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for k in out:
+        name = k.pop("mangled")
+        args = template_args(name)
+        k["variant"] = ", ".join(args) if args else name
+    return out
+
+
+# template arguments of the main path's f32 variant (all but min blocks)
+MAIN_F32 = ["float", "float", "8", "1", "8", "0"]
+
+
+def sass_summary(lib):
+    """The instruction mix of the main path's f32 variant's step loop
+    (the backward branch whose body holds the most barriers), from
+    `cuobjdump -sass`; None where the tool is missing."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    for block in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        args = template_args(block.split("\n", 1)[0].strip())
+        if not args or args[:6] != MAIN_F32:
+            continue
+        ins = [(int(a, 16), i.strip()) for a, i in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        best = (0, [])
+        for addr, i in ins:
+            m = re.search(r"BRA\s+(?:\S+,\s*)?0x([0-9a-f]+)", i)
+            if m and int(m.group(1), 16) < addr:
+                body = [j for b, j in ins if int(m.group(1), 16) <= b <= addr]
+                bars = sum("BAR.SYNC" in j for j in body)
+                if bars > best[0]:
+                    best = (bars, body)
+        ops = {}
+        for j in best[1]:
+            op = re.sub(r"^@!?U?P\w+\s+", "", j).split()[0].split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        return {"variant": ", ".join(args), "barriers": best[0],
+                "loop_instructions": len(best[1]),
+                "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return None
+
+
+def build_phase():
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    t = time.time()
+    lib = pdhg_chunk.build()
+    pdhg_chunk.load_library()
+    report = ptxas_report(pdhg_chunk.build_log_path().read_text())
+    # 3 variants (registers, shared, global) for each of f32, f64, bf16
+    check(len(report) == 9, f"ptxas reported {len(report)} kernels")
+    main = [k for k in report
+            if k["variant"].split(", ")[:6] == MAIN_F32]
+    check(len(main) == 1, "no ptxas line for the main path's f32 variant")
+    check(main[0].get("spill_stores", 1) == 0
+          and main[0].get("spill_loads", 1) == 0,
+          f"the main path's f32 variant spills: {main[0]}")
+    emit({"phase": "build", "library": str(lib), "s": time.time() - t,
+          "ptxas": report, "main_f32_step_loop": sass_summary(lib)})
 
 
 def solver_space_inputs(dtype):
@@ -131,10 +280,16 @@ def kernel_phase(name):
 
     from mpisppy_tpu_torch.ops import pdhg_chunk
     peak_name, (bw, f32_peak, f64_peak) = peaks(name)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    f32_args = solver_space_inputs(torch.float32)
     rows = {}
-    for dtype, peak in ((torch.float32, f32_peak),
-                        (torch.float64, f64_peak)):
-        args = solver_space_inputs(dtype)
+    for store, peak in ((torch.float32, f32_peak),
+                        (torch.float64, f64_peak),
+                        (torch.bfloat16, f32_peak)):
+        if store == torch.float64:
+            args = solver_space_inputs(torch.float64)
+        else:
+            args = [f32_args[0].to(store)] + f32_args[1:]
         got = pdhg_chunk.fused_chunk(*args, N_STEPS)
         torch.cuda.synchronize()
         want = pdhg_chunk.fused_chunk_reference(*args, N_STEPS)
@@ -144,34 +299,68 @@ def kernel_phase(name):
                       for g, w in zip(got, want))
         for g in got:
             check(bool(torch.isfinite(g).all()), "kernel output not finite")
-        dname = str(dtype).replace("torch.", "")
+        dname = str(store).replace("torch.", "")
         check(err_rel <= TOL[dname],
               f"{dname} kernel disagrees with its twin: {err_rel:.3e} > "
               f"{TOL[dname]:.0e}")
-        ms = time_ms(lambda: pdhg_chunk.fused_chunk(*args, N_STEPS))
+
+        def call():
+            return pdhg_chunk.fused_chunk(*args, N_STEPS)
+
+        ms = time_ms(call, queue_behind_sleep=True)
+        wrapper_us = host_us(call)
         plain_ms = time_ms(
             lambda: pdhg_chunk.fused_chunk_reference(*args, N_STEPS))
         _, M, N = args[0].shape
-        elt = args[0].element_size()
-        nbytes = elt * (S * M * N + 5 * S * N + 3 * S * M + 2 * S
-                        + 2 * S * N + 2 * S * M)
+        vec = args[1].element_size()
+        # each input read once, each output written once; A at its
+        # storage width, the FLOP at the compute type's peak
+        nbytes = (args[0].element_size() * S * M * N
+                  + vec * (5 * S * N + 3 * S * M + 2 * S
+                           + 2 * S * N + 2 * S * M))
         flops = N_STEPS * S * (4 * M * N + 10 * N + 8 * M)
         t_bytes = nbytes / bw * 1e3
         t_ops = flops / peak * 1e3
+        bound = max(t_bytes, t_ops)
+        variant, blocks = pdhg_chunk.occupancy(M, N, store)
         rows[dname] = {
             "dtype": dname, "S": S, "M": M, "N": N, "n_steps": N_STEPS,
             "max_abs_err": err_abs, "max_rel_err": err_rel,
-            "tol_rel": TOL[dname], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "tol_rel": TOL[dname], "ms": ms, "wrapper_host_us": wrapper_us,
+            "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / ms,
             "bytes": nbytes, "flops": flops,
             "peaks": {"card": peak_name, "bytes_per_s": bw,
                       "flops_per_s": peak},
-            "a_in_shared_memory": pdhg_chunk.stages_a_in_shared_memory(
-                M, N, dtype),
+            "variant": dataclasses.asdict(variant),
+            "blocks_per_sm": blocks, "sms": n_sm,
+            "waves": S / (blocks * n_sm),
             "library_ms": None}
         emit({"phase": "kernel", **rows[dname]})
     return rows
+
+
+def reset_counts():
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    pdhg_chunk.launches = 0
+    pdhg_chunk.launch_shapes.clear()
+
+
+def launch_table():
+    """The (S, M, N, dtype) tuples the kernel launched with since the
+    last reset_counts(), with their counts."""
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    return [{"S": k[0], "M": k[1], "N": k[2], "dtype": k[3], "launches": n}
+            for k, n in sorted(pdhg_chunk.launch_shapes.items())]
+
+
+def launches_by_dtype():
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    out = {}
+    for k, n in pdhg_chunk.launch_shapes.items():
+        out[k[3]] = out.get(k[3], 0) + n
+    return out
 
 
 def slice_phase():
@@ -180,14 +369,9 @@ def slice_phase():
     from mpisppy_tpu_torch.models import farmer
     from mpisppy_tpu_torch.ops import pdhg_chunk
     from mpisppy_tpu_torch.opt.ph import PH
-    opts = {"defaultPHrho": 1.0, "PHIterLimit": PH_ITERS,
-            "convthresh": 0.0, "pdhg_eps": 1e-5, "superstep_eps": 1e-4,
-            "lagrangian_eps": 1e-4, "pdhg_max_iters": 30000,
-            "no_split_prep": True,
-            "eps_ladder": {"start": 1e-3, "min": 1e-4, "couple": 0.1},
-            "pdhg_hot_dtype": "f32"}
+    opts = dict(SLICE_OPTS)
     torch.cuda.reset_peak_memory_stats()
-    pdhg_chunk.launches = 0           # count the main path's run only
+    reset_counts()                    # count the main path's run only
     t0 = time.time()
     b = farmer.build_batch(S, crops_multiplier=CM, dtype=np.float32)
     ph = PH(opts, [f"scen{i}" for i in range(S)], batch=b)
@@ -213,6 +397,9 @@ def slice_phase():
     gap = gap_loop(PH, opts, b)
     gap["profile"] = profile_window(gap.pop("ph"))
     launches = pdhg_chunk.launches
+    shapes = launch_table()
+    check(sum(r["launches"] for r in shapes) == launches,
+          "the per-shape launch counts do not add up")
     for f, v in vars(ph.state).items():
         if torch.is_tensor(v):
             check(v.device.type == "cuda", f"state.{f} is on {v.device}")
@@ -229,7 +416,7 @@ def slice_phase():
            "trivial_bound": trivial, "inner_bound": inner,
            "outer_bound": outer, "conv": ph.conv,
            "rel_gap": (inner - max(trivial, outer)) / abs(inner),
-           "kernel_launches": launches,
+           "kernel_launches": launches, "launch_shapes": shapes,
            "launches_per_ph_iteration": it_launches,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "steps": steps, "pdhg_stats": ph.pdhg_stats(),
@@ -291,14 +478,69 @@ def profile_window(ph, n=2):
             d[1] += e.time_range.elapsed_us()
     busy = sum(v[1] for v in by_name.values())
     chunk = sum(v[1] for k, v in by_name.items() if "pdhg_chunk" in k)
+    chunk_n = sum(v[0] for k, v in by_name.items() if "pdhg_chunk" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     return {"ph_iterations": n, "wall_us": wall_us, "device_busy_us": busy,
             "idle_share": (1.0 - busy / wall_us) if busy else None,
-            "chunk_kernel_us": chunk,
+            "chunk_kernel_us": chunk, "chunk_kernel_launches": chunk_n,
             "chunk_share_of_busy": (chunk / busy) if busy else None,
             "device_events": sum(v[0] for v in by_name.values()),
             "top": [{"name": k[:60], "count": v[0], "us": v[1]}
                     for k, v in top]}
+
+
+def bf16x_phase():
+    """This slice's own path: farmer S=1000, cm=10, f32 batch, the
+    slice's options with A stored in bf16 in the hot loop."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.ph import PH
+    opts = dict(SLICE_OPTS, PHIterLimit=BF16X_PH_ITERS,
+                pdhg_hot_dtype="bf16x")
+    reset_counts()
+    t0 = time.time()
+    b = farmer.build_batch(S, crops_multiplier=CM, dtype=np.float32)
+    ph = PH(opts, [f"scen{i}" for i in range(S)], batch=b)
+    torch.cuda.synchronize()
+    steps = [{"step": "setup", "s": time.time() - t0}]
+
+    def timed(step, fn):
+        n0, t = launches_by_dtype(), time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        n1 = launches_by_dtype()
+        steps.append({"step": step, "s": time.time() - t,
+                      "launches": {k: n1[k] - n0.get(k, 0) for k in n1
+                                   if n1[k] != n0.get(k, 0)}})
+        return out
+
+    trivial = timed("iter0", ph.Iter0)
+    for k in range(BF16X_PH_ITERS):
+        timed(f"ph_iteration_{k + 1}", ph.ph_iteration)
+    inner, feas = timed("evaluate_xhat", lambda: ph.evaluate_xhat(
+        ph.root_xbar()))
+    outer = timed("lagrangian_bound", ph.lagrangian_bound)
+    by_dtype = launches_by_dtype()
+    check(all(np.isfinite([trivial, inner, outer])),
+          f"bf16x bounds not finite: {trivial}, {inner}, {outer}")
+    check(feas, "bf16x xhat candidate infeasible")
+    check(max(trivial, outer) <= inner + 1e-6 * abs(inner),
+          f"bf16x outer bound above inner: {max(trivial, outer)} > {inner}")
+    check(by_dtype.get("bfloat16", 0) > 0, "the bf16x path launched no "
+          "bf16 kernel")
+    check(all(s["launches"].get("bfloat16", 0) > 0 for s in steps
+              if s["step"].startswith("ph_iteration")),
+          "a bf16x PH iteration did not run in bf16 storage")
+    out = {"phase": "bf16x", "S": S, "crops_multiplier": CM,
+           "dtype": "float32", "hot_dtype": "bf16x",
+           "ph_iterations": BF16X_PH_ITERS, "trivial_bound": trivial,
+           "inner_bound": inner, "outer_bound": outer, "conv": ph.conv,
+           "rel_gap": (inner - max(trivial, outer)) / abs(inner),
+           "launches_by_dtype": by_dtype, "launch_shapes": launch_table(),
+           "steps": steps, "pdhg_stats": ph.pdhg_stats()}
+    emit(out)
+    return out
 
 
 def golden_phase():
@@ -332,7 +574,6 @@ def main():
         return 1
     t_all = time.time()
     from mpisppy_tpu_torch import disable_tictoc_output
-    from mpisppy_tpu_torch.ops import pdhg_chunk
     disable_tictoc_output()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -341,10 +582,7 @@ def main():
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": name, "nvidia_smi": smi, "s": time.time() - t})
-    t = time.time()
-    lib = pdhg_chunk.build()
-    pdhg_chunk.load_library()
-    emit({"phase": "build", "library": str(lib), "s": time.time() - t})
+    build_phase()
     t = time.time()
     rows = kernel_phase(name)
     emit({"phase": "kernel_done", "s": time.time() - t})
@@ -352,11 +590,16 @@ def main():
     sl = slice_phase()
     emit({"phase": "slice_done", "s": time.time() - t})
     t = time.time()
+    bx = bf16x_phase()
+    emit({"phase": "bf16x_done", "s": time.time() - t})
+    t = time.time()
     golden_phase()
     emit({"phase": "golden_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
 
-    f32, f64 = rows["float32"], rows["float64"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "blocks_per_sm", "waves")
+    f32 = rows["float32"]
     emit({"kernels": [{
         "name": "pdhg_chunk", "route": "cuda",
         "source": "mpisppy_tpu_torch/csrc/pdhg_chunk.cu",
@@ -365,9 +608,11 @@ def main():
         "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None,
-        "dtype": "float32",
-        "f64": {k: f64[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by")}}]})
+        "dtype": "float32", "share_of_bound": f32["share_of_bound"],
+        "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"],
+        "f64": {k: rows["float64"][k] for k in keys},
+        "bf16": {**{k: rows["bfloat16"][k] for k in keys},
+                 "launches": bx["launches_by_dtype"].get("bfloat16", 0)}}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

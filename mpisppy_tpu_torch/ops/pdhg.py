@@ -19,8 +19,8 @@ its plain twin in `ops/pdhg_chunk.py`, the only place the port runs
 them.
 
 Not ported yet (ROADMAP queue A): `ConsensusSpec`, `solve_compacted`,
-the SplitA preps, `hot_dtype="bf16x"`, the sparse shared block and the
-`MPISPPY_TPU_PDHG` environment overlay.  Each raises
+the SplitA preps, the sparse shared block and the `MPISPPY_TPU_PDHG`
+environment overlay.  Each raises
 NotImplementedError where it would be selected.
 """
 
@@ -38,9 +38,12 @@ from ..ir import bmatvec as _Ax
 from ..ir import bmatvec_t as _ATy
 from .pdhg_chunk import _proj_box, fused_chunk
 
-# hot_dtype knob -> (storage dtype, compute dtype) for the inner loop
+# hot_dtype knob -> (storage dtype, compute dtype) for the inner loop;
+# "bf16x" stores A in bfloat16 and does all arithmetic in float32 (the
+# chunk kernel converts A once per chunk, as it enters registers)
 HOT_DTYPES = {
     "f32": (torch.float32, torch.float32),
+    "bf16x": (torch.bfloat16, torch.float32),
 }
 
 def eps_floor(dtype):
@@ -239,8 +242,6 @@ class PDHGSolver:
         self.pallas_interpret = bool(pallas_interpret)
         if hot_dtype in (None, "", "none", "off", "f64", "float64"):
             hot_dtype = None
-        elif hot_dtype == "bf16x":
-            raise not_ported("hot_dtype='bf16x'", 2)
         elif hot_dtype not in HOT_DTYPES:
             raise ValueError(
                 f"hot_dtype must be one of {sorted(HOT_DTYPES)} (or "
@@ -396,6 +397,10 @@ class PDHGSolver:
         # the chunk kernel takes contiguous per-scenario tensors
         A = A.contiguous()
         kin = [t.contiguous() for t in (cs, qs, lbs, ubs, rlo, rhi)]
+        # the KKT checks read A in the loop's compute dtype, cast up once
+        # per solve when it is stored lower (jnp.einsum promotes bf16 x
+        # f32 operands to f32 in the JAX package)
+        A_kkt = A if A.dtype == cs.dtype else A.to(cs.dtype)
 
         def steps(x, y, omega, n):
             """n PDHG iterations in one kernel launch: final iterates +
@@ -407,7 +412,7 @@ class PDHGSolver:
 
         def kkt_score(x, y, data=None):
             if data is None:
-                data = (cs, qs, A, rlo, rhi, lbs, ubs)
+                data = (cs, qs, A_kkt, rlo, rhi, lbs, ubs)
             pres, dres, gap, _, _ = _residuals(x, y, *data)
             return pres + dres + gap, pres, dres, gap
 

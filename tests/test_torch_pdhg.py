@@ -10,6 +10,12 @@ package's `mpisppy_tpu/ops/pdhg.py`, float64 on the CPU.
   largest magnitude.  The two sides differ only in floating-point
   summation order, far below every decision threshold on these
   instances.
+* hot_dtype="bf16x" (A stored in bfloat16, float32 arithmetic) on an
+  f32 farmer-8 batch, the main path's dtype: the same decisions, and x,
+  y, obj and dual_obj within 1e-4 relative to the largest magnitude.
+  The loop runs in float32, where the two sides' summation orders drift
+  apart from ~1e-7 by some 1e-5 over a solve; the eps values are ones
+  whose restart decisions stay clear of that drift.
 """
 
 import numpy as np
@@ -132,6 +138,48 @@ def test_hot_dtype_promotion_rule_matches_jax():
     assert pdhg.eps_floor(torch.float32) == jpdhg.eps_floor("float32")
 
 
+def test_bf16x_knob_matches_jax():
+    js = jpdhg.PDHGSolver(hot_dtype="bf16x")
+    ts = pdhg.PDHGSolver(hot_dtype="bf16x")
+    assert ts.hot_dtype == js.hot_dtype == "bf16x"
+    # bf16x accumulates in f32, so its floor is f32's
+    assert ts.hot_eps_floor() == pytest.approx(js.hot_eps_floor())
+    for eps in (1e-4, 1e-5, 1e-6):
+        assert ts.wants_promotion(eps) == js.wants_promotion(eps)
+    for caller in (torch.float32, torch.float64):
+        assert ts._hot_pair(caller) == (torch.bfloat16, torch.float32)
+    assert ts.config_key() != ts.clone(hot_dtype="f32").config_key()
+
+
+@pytest.fixture(scope="module")
+def farmer8_f32():
+    jb = jfarmer.build_batch(8, dtype=np.float32)
+    jprep = jpdhg.prepare_batch(jnp.asarray(jb.A), jnp.asarray(jb.row_lo),
+                                jnp.asarray(jb.row_hi))
+    return jb, jprep, farmer.build_batch(8, dtype=np.float32, device="cpu")
+
+
+@pytest.mark.parametrize("eps", [1e-4, 1e-5])
+def test_bf16x_solver_matches_jax_on_farmer8(farmer8_f32, eps):
+    jb, jprep, tb = farmer8_f32
+    jres = jpdhg.PDHGSolver(eps=eps, hot_dtype="bf16x").solve(
+        jprep, jnp.asarray(jb.c), jnp.asarray(jb.qdiag),
+        jnp.asarray(jb.lb), jnp.asarray(jb.ub),
+        obj_const=jnp.asarray(jb.obj_const))
+    prep = prep_from_arrays(to_arrays(jprep), device="cpu")
+    res = pdhg.PDHGSolver(eps=eps, hot_dtype="bf16x").solve(
+        prep, tb.c, tb.qdiag, tb.lb, tb.ub, obj_const=tb.obj_const)
+    assert res.x.dtype == torch.float32
+    assert bool(res.converged.all())
+    np.testing.assert_array_equal(res.converged.numpy(),
+                                  np.asarray(jres.converged))
+    assert res.iters == int(jres.iters)
+    np.testing.assert_array_equal(res.restarts.numpy(),
+                                  np.asarray(jres.restarts))
+    for f in ("x", "y", "obj", "dual_obj"):
+        _close(getattr(res, f), getattr(jres, f), 1e-4)
+
+
 def test_hot_f32_loop_reaches_f64_verdict(farmer8):
     """An f64 batch under hot_dtype="f32": the loop runs in float32 and
     the final verdict is rechecked in float64, as in the JAX package."""
@@ -151,8 +199,7 @@ def test_hot_f32_loop_reaches_f64_verdict(farmer8):
 def test_unported_paths_refuse(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pdhg.PDHGSolver(compact_threshold=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdhg.PDHGSolver(hot_dtype="bf16x")
+    assert pdhg.PDHGSolver(hot_dtype="bf16x").hot_dtype == "bf16x"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pdhg.PDHGSolver(sparse_threshold=0.3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -180,3 +180,32 @@ def test_bench_options_path_hot_f32_ladder():
     assert max(triv, outer) <= inner + 1e-6 * abs(inner)
     assert ph.pdhg_stats()["promotions_total"] >= 1
     assert ph.state.x.dtype == ph.batch.c.dtype
+
+
+def test_bench_options_path_bf16x():
+    """chip_smoke.py's bf16x phase at a small size: an f32 batch under
+    hot_dtype="bf16x".  Iter0 at pdhg_eps=1e-5 (below the f32 floor)
+    promotes to full precision; the ladder's PH iterations and the
+    Lagrangian bound run with A stored in bfloat16."""
+    S = 12
+    opts = {"defaultPHrho": 1.0, "PHIterLimit": 2, "convthresh": 0.0,
+            "pdhg_eps": 1e-5, "superstep_eps": 1e-4,
+            "lagrangian_eps": 1e-4, "pdhg_max_iters": 30000,
+            "eps_ladder": {"start": 1e-3, "min": 1e-4, "couple": 0.1},
+            "pdhg_hot_dtype": "bf16x"}
+    ph = PH(opts, [f"scen{i}" for i in range(S)],
+            batch=farmer.build_batch(S, crops_multiplier=2,
+                                     dtype=np.float32, device="cpu"),
+            device="cpu")
+    triv = ph.Iter0()
+    promoted = ph.pdhg_stats()["promotions_total"]
+    assert promoted >= 1
+    for _ in range(2):
+        ph.ph_iteration()
+    assert ph.pdhg_stats()["promotions_total"] == promoted
+    assert ph.solve_stats()["dtype"] == "bfloat16"
+    inner, feas = ph.evaluate_xhat(ph.root_xbar())
+    outer = ph.lagrangian_bound()
+    assert feas and np.isfinite([triv, inner, outer]).all()
+    assert max(triv, outer) <= inner + 1e-6 * abs(inner)
+    assert ph.state.x.dtype == ph.batch.c.dtype
