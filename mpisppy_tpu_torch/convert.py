@@ -17,7 +17,7 @@ import torch
 
 from . import not_ported
 from .device import resolve_device
-from .ir import ScenarioBatch, TreeInfo
+from .ir import ScenarioBatch, SplitA, TreeInfo
 from .ops.pdhg import PreparedBatch
 from .phbase import PHState
 
@@ -44,14 +44,27 @@ def _t(a, dev, dtype=None):
     if a is None:
         return None
     if not isinstance(a, np.ndarray) or a.dtype == object:
-        raise not_ported(f"converting a {type(a).__name__} (only dense "
-                         "numpy arrays convert; SplitA operators)", 1)
+        raise not_ported(f"converting a {type(a).__name__} (dense arrays "
+                         "and dense-shared SplitA operators convert; a "
+                         "sparse shared block does not)", 1)
     t = torch.from_numpy(np.array(a)).to(dev)
     return t if dtype is None else t.to(dtype)
 
 
+def _operator(a, dev):
+    """A constraint operator: a dense array, or a SplitA's field dict
+    (to_arrays of the JAX package's SplitA)."""
+    if isinstance(a, dict):
+        return SplitA(shared=_t(a["shared"], dev),
+                      rows=_t(np.asarray(a["rows"]), dev, torch.int32),
+                      cols=_t(np.asarray(a["cols"]), dev, torch.int32),
+                      vals=_t(a["vals"], dev))
+    return _t(a, dev)
+
+
 def batch_from_arrays(d, device=None) -> ScenarioBatch:
-    """ScenarioBatch (dense A) from a dict of the JAX field names."""
+    """ScenarioBatch (dense, shared or SplitA operator) from a dict of
+    the JAX field names."""
     dev = resolve_device(device)
     tr = d["tree"]
     stage_of = tr.get("stage_of")
@@ -66,7 +79,7 @@ def batch_from_arrays(d, device=None) -> ScenarioBatch:
     if d.get("var_prob") is not None:
         raise not_ported("variable_probability", 10)
     return ScenarioBatch(
-        c=_t(d["c"], dev), qdiag=_t(d["qdiag"], dev), A=_t(d["A"], dev),
+        c=_t(d["c"], dev), qdiag=_t(d["qdiag"], dev), A=_operator(d["A"], dev),
         row_lo=_t(d["row_lo"], dev), row_hi=_t(d["row_hi"], dev),
         lb=_t(d["lb"], dev), ub=_t(d["ub"], dev),
         obj_const=_t(d["obj_const"], dev),
@@ -79,10 +92,11 @@ def batch_from_arrays(d, device=None) -> ScenarioBatch:
 
 
 def prep_from_arrays(d, device=None) -> PreparedBatch:
-    """PreparedBatch (dense A) from a dict of the JAX field names."""
+    """PreparedBatch (dense, shared or SplitA operator) from a dict of
+    the JAX field names."""
     dev = resolve_device(device)
-    return PreparedBatch(**{f.name: _t(d[f.name], dev)
-                            for f in dataclasses.fields(PreparedBatch)})
+    return PreparedBatch(**{f.name: (_operator if f.name == "A" else _t)(
+        d[f.name], dev) for f in dataclasses.fields(PreparedBatch)})
 
 
 def state_from_arrays(d, device=None) -> PHState:

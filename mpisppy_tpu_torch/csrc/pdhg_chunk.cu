@@ -14,8 +14,25 @@
 //   yn   = v - sigma*clip(v/sigma, rlo, rhi)        (clip = min(max(.)))
 //   x, y = xn, yn;  xsum += xn;  ysum += yn
 //
-// Inputs are solver-space (already Ruiz-scaled) and contiguous: A (S, M,
-// N); cs, qs, lb, ub, x (S, N); rlo, rhi, y (S, M); tau, sigma (S,).
+// Inputs are solver-space (already Ruiz-scaled) and contiguous: cs, qs,
+// lb, ub, x (S, N); rlo, rhi, y (S, M); tau, sigma (S,).  The operator
+// A(s) comes in one of three forms (template parameter FORM):
+//   dense   A (S, M, N), one matrix per scenario;
+//   shared  A (1, M, N), one matrix for every scenario (ir.bmatvec's
+//           shared-A form);
+//   split   shared (M, N) plus vals (S, nnz) at (rows, cols) (ir.SplitA):
+//           A(s) = shared + scatter-add of vals[s].
+// Every form builds the same per-scenario tile, from which the step loop
+// runs unchanged.  The shared and split forms read `shared` instead of
+// the scenario's slab (every block reads the same M x N matrix, which
+// stays in L2); the split form then adds its scenario's deltas that
+// fall inside the tile, each element owned by one thread, in k order,
+// rounding each sum to the storage type as A.to_dense() does.  Since
+// shared holds zeros at the delta slots (0 + v = v), the tile holds
+// exactly the values of to_dense(), and each form gives the dense
+// kernel's result on to_dense() bit for bit.  The JAX package sends both
+// forms to XLA (ops/pdhg.py:931-933); here they keep the solves that
+// the split prep feeds on this kernel.
 // Three entry points: f32 (all float), f64 (all double) and bf16 (A in
 // __nv_bfloat16, every vector and every output float).  The bf16 form
 // converts A with __bfloat162float once, as the tile enters registers,
@@ -89,6 +106,8 @@ namespace {
 
 // where the matvecs read A from
 enum Src : int { kRegisters = 0, kShared = 1, kGlobal = 2 };
+// how A is given (ops/pdhg_chunk.py FORMS)
+enum Form : int { kDense = 0, kSharedA = 1, kSplit = 2 };
 
 // elementwise arithmetic, rounded after each operation (never an FMA)
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -114,6 +133,19 @@ __device__ __forceinline__ T clip(T v, T lo, T hi) {
 __device__ __forceinline__ float up(float v) { return v; }
 __device__ __forceinline__ double up(double v) { return v; }
 __device__ __forceinline__ float up(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// a compute-type value rounded to the storage type TS and back (the
+// split form's delta sums, as A.to_dense() builds them in TS)
+__device__ __forceinline__ float round_to(const float*, float v) { return v; }
+__device__ __forceinline__ double round_to(const double*, double v) { return v; }
+__device__ __forceinline__ float round_to(const __nv_bfloat16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float down(float*, float v) { return v; }
+__device__ __forceinline__ double down(double*, double v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 down(__nv_bfloat16*, float v) {
+  return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float bf16_word_half(unsigned w, int hi) {
   __nv_bfloat16_raw r;
@@ -170,6 +202,36 @@ __device__ __forceinline__ void load_tile(T (&a)[R][V][4],
   }
 }
 
+// Split form, register tile: gather this scenario's deltas that fall in
+// this thread's R x 4V values (rows row0.., columns 4*(lane + 32v)..+3)
+// into its own 4RV slots of shared memory, `patch`, before the tile is
+// loaded, so that no register of the tile is live during the walk.  A
+// repeated (row, col) pair sums in k order, each sum rounded to TS as
+// A.to_dense() builds it.  Returns the mask of the slots written.
+template <typename TS, typename T, int R, int V>
+__device__ __forceinline__ unsigned gather_deltas(T* __restrict__ patch,
+                                                  const int* __restrict__ rows,
+                                                  const int* __restrict__ cols,
+                                                  const TS* __restrict__ vs,
+                                                  int nnz, int row0, int lane) {
+  static_assert(R * V * 4 <= 32, "one mask bit per slot");
+  unsigned touched = 0;
+#pragma unroll 1
+  for (int k = 0; k < nnz; ++k) {
+    const int i = __ldg(rows + k) - row0;
+    if ((unsigned)i >= (unsigned)R) continue;  // the same on the whole warp
+    const int c = __ldg(cols + k);
+    const int g = (c >> 2) - lane;  // column group, relative to this lane
+    if (g < 0 || (g & 31) != 0 || (g >> 5) >= V) continue;
+    const int slot = (i * V + (g >> 5)) * 4 + (c & 3);
+    const T d = up(vs[k]);
+    const T p = ((touched >> slot) & 1u) ? add_rn(patch[slot], d) : d;
+    patch[slot] = round_to((const TS*)nullptr, p);
+    touched |= 1u << slot;
+  }
+  return touched;
+}
+
 // Sum each of the R values over the warp's 32 lanes.  Each stage sends
 // half of the remaining values to the partner lane and keeps the other
 // half, so after log2(R) stages lane l holds one row's partial sum over
@@ -200,9 +262,13 @@ __device__ __forceinline__ T reduce_scatter(T (&v)[R], int lane, int& row) {
   return v[0];
 }
 
-template <typename TS, typename T, int R, int V, int W, int SRC, int MINB>
+template <typename TS, typename T, int R, int V, int W, int SRC, int FORM,
+          int MINB>
 __global__ void __launch_bounds__(W * 32, MINB)
-pdhg_chunk_tiled(const TS* __restrict__ A, const T* __restrict__ cs,
+pdhg_chunk_tiled(const TS* __restrict__ A, const int* __restrict__ drows,
+                 const int* __restrict__ dcols,
+                 const TS* __restrict__ dvals, int nnz,
+                 const T* __restrict__ cs,
                  const T* __restrict__ qs, const T* __restrict__ lb,
                  const T* __restrict__ ub, const T* __restrict__ rlo,
                  const T* __restrict__ rhi, const T* __restrict__ x0,
@@ -231,7 +297,9 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const T* __restrict__ cs,
   T* rh = rl + Mp;
   T* ysum = rh + Mp;
   T* red = ysum + Mp;  // (W, Np): each warp's partial A^T y
-  TS* As = reinterpret_cast<TS*>(red + W * Np);  // (M, N), kShared only
+  // (M, N) for the shared-memory source; the split form's per-thread
+  // delta patch (32 W x 4RV values) for the register source
+  TS* As = reinterpret_cast<TS*>(red + W * Np);
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
@@ -256,10 +324,24 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const T* __restrict__ cs,
     rh[i] = in ? rhi[om + i] : T(0);
     ysum[i] = T(0);
   }
-  const TS* Ag = A + (size_t)s * (size_t)M * (size_t)N;
+  // the shared and split forms read the one shared matrix
+  const TS* Ag = FORM == kDense ? A + (size_t)s * (size_t)M * (size_t)N : A;
+  const TS* vs = FORM == kSplit ? dvals + (size_t)s * (size_t)nnz : dvals;
   if constexpr (SRC == kShared) {
     const size_t MN = (size_t)M * (size_t)N;
     for (size_t k = tid; k < MN; k += NT) As[k] = Ag[k];
+    if constexpr (FORM == kSplit) {
+      // element e belongs to thread e % NT, which also copied it
+#pragma unroll 1
+      for (int k = 0; k < nnz; ++k) {
+        const int i = __ldg(drows + k);
+        const int c = __ldg(dcols + k);
+        const size_t e = (size_t)i * (size_t)N + (size_t)c;
+        if (i < M && c < N && e % NT == (size_t)tid)
+          As[e] = down((TS*)nullptr, round_to((const TS*)nullptr,
+                                              add_rn(up(As[e]), up(vs[k]))));
+      }
+    }
   }
   const TS* Ak = SRC == kShared ? As : Ag;
   const T tau_s = tau[s];
@@ -268,8 +350,28 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const T* __restrict__ cs,
   const bool vec_ok = vec != 0;
 
   T a[R][V][4];
-  if constexpr (SRC == kRegisters)
-    load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
+  if constexpr (SRC == kRegisters) {
+    if constexpr (FORM == kSplit) {
+      // this thread's slots of the patch area (after the reduction buffer)
+      T* patch = reinterpret_cast<T*>(red + W * Np) + tid * (R * V * 4);
+      const unsigned touched =
+          gather_deltas<TS, T, R, V>(patch, drows, dcols, vs, nnz, row0, lane);
+      load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int slot = (r * V + v) * 4 + e;
+            if ((touched >> slot) & 1u)
+              a[r][v][e] = round_to((const TS*)nullptr,
+                                    add_rn(a[r][v][e], patch[slot]));
+          }
+    } else {
+      load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
+    }
+  }
   __syncthreads();
 
   for (int step = 0; step < n_steps; ++step) {
@@ -356,18 +458,22 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const T* __restrict__ cs,
 }
 
 // dynamic shared memory of one block (ops/pdhg_chunk.py Variant.smem_bytes)
-template <typename TS, typename T, int R, int V, int W, int SRC>
+template <typename TS, typename T, int R, int V, int W, int SRC, int FORM>
 size_t smem_bytes(int M, int N) {
   const size_t RT = (size_t)R * W, CT = (size_t)128 * V;
   const size_t Mp = ((size_t)M + RT - 1) / RT * RT;
   const size_t Np = ((size_t)N + CT - 1) / CT * CT;
   size_t b = ((7 + (size_t)W) * Np + 4 * Mp) * sizeof(T);
   if (SRC == kShared) b += (size_t)M * (size_t)N * sizeof(TS);
+  if (SRC == kRegisters && FORM == kSplit)
+    b += (size_t)32 * W * R * V * 4 * sizeof(T);
   return b;
 }
 
 struct Args {
-  const void *A, *cs, *qs, *lb, *ub, *rlo, *rhi, *x, *y, *tau, *sigma;
+  const void *A, *rows, *cols, *vals;
+  int nnz;
+  const void *cs, *qs, *lb, *ub, *rlo, *rhi, *x, *y, *tau, *sigma;
   void *xo, *yo, *xso, *yso;
   int S, M, N, n_steps;
   cudaStream_t stream;
@@ -375,10 +481,11 @@ struct Args {
 
 // Launch one variant, or (occupancy != nullptr) report how many of its
 // blocks fit on one SM at these shapes.
-template <typename TS, typename T, int R, int V, int W, int SRC, int MINB>
+template <typename TS, typename T, int R, int V, int W, int SRC, int FORM,
+          int MINB>
 int run(const Args& g, int* occupancy) {
-  auto kernel = pdhg_chunk_tiled<TS, T, R, V, W, SRC, MINB>;
-  const size_t smem = smem_bytes<TS, T, R, V, W, SRC>(g.M, g.N);
+  auto kernel = pdhg_chunk_tiled<TS, T, R, V, W, SRC, FORM, MINB>;
+  const size_t smem = smem_bytes<TS, T, R, V, W, SRC, FORM>(g.M, g.N);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -390,7 +497,8 @@ int run(const Args& g, int* occupancy) {
   const uintptr_t align = sizeof(TS) == 2 ? 8 : 16;
   const int vec = (g.N % 4 == 0) && ((uintptr_t)g.A % align == 0);
   kernel<<<g.S, 32 * W, smem, g.stream>>>(
-      (const TS*)g.A, (const T*)g.cs, (const T*)g.qs, (const T*)g.lb,
+      (const TS*)g.A, (const int*)g.rows, (const int*)g.cols,
+      (const TS*)g.vals, g.nnz, (const T*)g.cs, (const T*)g.qs, (const T*)g.lb,
       (const T*)g.ub, (const T*)g.rlo, (const T*)g.rhi, (const T*)g.x,
       (const T*)g.y, (const T*)g.tau, (const T*)g.sigma, (T*)g.xo,
       (T*)g.yo, (T*)g.xso, (T*)g.yso, g.M, g.N, g.n_steps, vec);
@@ -398,26 +506,38 @@ int run(const Args& g, int* occupancy) {
 }
 
 // (rows per thread R, column vectors per lane V, warps W, source of A,
-// min blocks per SM for __launch_bounds__): the variants that
-// ops/pdhg_chunk.py::pick_variant can choose, per compute type.  The
-// register tile holds 32 values a thread: 64 registers in f32, so 4
-// blocks fit on an SM; 128 in f64, 2 blocks.
-#define PDHG_F32_VARIANTS(X) \
-  X(8, 1, 8, kRegisters, 4)  \
-  X(4, 1, 8, kShared, 2)     \
-  X(4, 1, 8, kGlobal, 2)
-#define PDHG_F64_VARIANTS(X) \
-  X(8, 1, 8, kRegisters, 2)  \
-  X(4, 1, 8, kShared, 2)     \
-  X(4, 1, 8, kGlobal, 2)
+// form of A, min blocks per SM for __launch_bounds__): the variants that
+// ops/pdhg_chunk.py::pick_variant and pick_route can choose, per compute
+// type.  The register tile holds 32 values a thread: 64 registers in
+// f32, so 4 blocks fit on an SM; 128 in f64, 2 blocks.  The shared and
+// split forms take only the register and shared-memory sources: where A
+// is too large for either, pick_route sends the solve to the matmul
+// route.
+#define PDHG_F32_VARIANTS(X)           \
+  X(8, 1, 8, kRegisters, kDense, 4)    \
+  X(4, 1, 8, kShared, kDense, 2)       \
+  X(4, 1, 8, kGlobal, kDense, 2)       \
+  X(8, 1, 8, kRegisters, kSharedA, 4)  \
+  X(4, 1, 8, kShared, kSharedA, 2)     \
+  X(8, 1, 8, kRegisters, kSplit, 4)    \
+  X(4, 1, 8, kShared, kSplit, 2)
+#define PDHG_F64_VARIANTS(X)           \
+  X(8, 1, 8, kRegisters, kDense, 2)    \
+  X(4, 1, 8, kShared, kDense, 2)       \
+  X(4, 1, 8, kGlobal, kDense, 2)       \
+  X(8, 1, 8, kRegisters, kSharedA, 2)  \
+  X(4, 1, 8, kShared, kSharedA, 2)     \
+  X(8, 1, 8, kRegisters, kSplit, 2)    \
+  X(4, 1, 8, kShared, kSplit, 2)
 
 template <typename TS, typename T>
-int dispatch(const Args& g, int R, int V, int W, int src, int* occupancy) {
-  if (g.S <= 0 || g.M <= 0 || g.N <= 0 || g.n_steps < 0)
+int dispatch(const Args& g, int form, int R, int V, int W, int src,
+             int* occupancy) {
+  if (g.S <= 0 || g.M <= 0 || g.N <= 0 || g.n_steps < 0 || g.nnz < 0)
     return (int)cudaErrorInvalidValue;
-#define PDHG_TRY(r, v, w, sr, mb)                    \
-  if (R == r && V == v && W == w && src == sr)       \
-    return run<TS, T, r, v, w, sr, mb>(g, occupancy);
+#define PDHG_TRY(r, v, w, sr, fm, mb)                              \
+  if (R == r && V == v && W == w && src == sr && form == fm)       \
+    return run<TS, T, r, v, w, sr, fm, mb>(g, occupancy);
   if constexpr (sizeof(T) == 4) {
     PDHG_F32_VARIANTS(PDHG_TRY)
   } else {
@@ -427,29 +547,37 @@ int dispatch(const Args& g, int R, int V, int W, int src, int* occupancy) {
   return (int)cudaErrorInvalidValue;
 }
 
-Args make_args(const void* A, const void* cs, const void* qs, const void* lb,
-               const void* ub, const void* rlo, const void* rhi,
-               const void* x, const void* y, const void* tau,
-               const void* sigma, void* xo, void* yo, void* xso, void* yso,
-               int S, int M, int N, int n_steps, void* stream) {
-  return Args{A,  cs, qs, lb,  ub,  rlo, rhi, x, y, tau, sigma, xo,
-              yo, xso, yso, S, M, N, n_steps, (cudaStream_t)stream};
+Args make_args(const void* A, const void* rows, const void* cols,
+               const void* vals, int nnz, const void* cs, const void* qs,
+               const void* lb, const void* ub, const void* rlo,
+               const void* rhi, const void* x, const void* y,
+               const void* tau, const void* sigma, void* xo, void* yo,
+               void* xso, void* yso, int S, int M, int N, int n_steps,
+               void* stream) {
+  return Args{A,   rows, cols, vals, nnz, cs,  qs,  lb, ub, rlo,
+              rhi, x,    y,    tau,  sigma, xo, yo, xso, yso, S,
+              M,   N,    n_steps, (cudaStream_t)stream};
 }
 
 }  // namespace
 
 extern "C" {
 
+// A (or the split form's shared block), rows, cols, vals, nnz, form
+// (0 dense, 1 shared, 2 split), the vectors, the outputs, the sizes, the
+// variant and the stream.
 #define PDHG_ENTRY(name, TS, T)                                              \
-  int name(const void* A, const void* cs, const void* qs, const void* lb,   \
-           const void* ub, const void* rlo, const void* rhi, const void* x, \
-           const void* y, const void* tau, const void* sigma, void* xo,     \
-           void* yo, void* xso, void* yso, int S, int M, int N,             \
-           int n_steps, int R, int V, int W, int src, void* stream) {       \
-    return dispatch<TS, T>(make_args(A, cs, qs, lb, ub, rlo, rhi, x, y,     \
-                                     tau, sigma, xo, yo, xso, yso, S, M, N, \
-                                     n_steps, stream),                      \
-                           R, V, W, src, nullptr);                          \
+  int name(const void* A, const void* rows, const void* cols,               \
+           const void* vals, int nnz, int form, const void* cs,             \
+           const void* qs, const void* lb, const void* ub, const void* rlo, \
+           const void* rhi, const void* x, const void* y, const void* tau,  \
+           const void* sigma, void* xo, void* yo, void* xso, void* yso,     \
+           int S, int M, int N, int n_steps, int R, int V, int W, int src,  \
+           void* stream) {                                                  \
+    return dispatch<TS, T>(                                                 \
+        make_args(A, rows, cols, vals, nnz, cs, qs, lb, ub, rlo, rhi, x, y, \
+                  tau, sigma, xo, yo, xso, yso, S, M, N, n_steps, stream),  \
+        form, R, V, W, src, nullptr);                                       \
   }
 
 PDHG_ENTRY(pdhg_chunk_f32, float, float)
@@ -457,19 +585,20 @@ PDHG_ENTRY(pdhg_chunk_f64, double, double)
 PDHG_ENTRY(pdhg_chunk_bf16, __nv_bfloat16, float)
 #undef PDHG_ENTRY
 
-// Resident blocks per SM of a variant at (M, N) for storage kind 0 (f32),
-// 1 (f64) or 2 (bf16); a negative CUDA error code on failure.
-int pdhg_chunk_occupancy(int kind, int R, int V, int W, int src, int M,
-                         int N) {
-  const Args g = make_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+// Resident blocks per SM of a variant and form at (M, N) for storage kind
+// 0 (f32), 1 (f64) or 2 (bf16); a negative CUDA error code on failure.
+int pdhg_chunk_occupancy(int kind, int form, int R, int V, int W, int src,
+                         int M, int N) {
+  const Args g = make_args(nullptr, nullptr, nullptr, nullptr, 0, nullptr,
                            nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, nullptr, nullptr, nullptr, 1, M,
-                           N, 0, nullptr);
+                           nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, 1, M, N, 0, nullptr);
   int blocks = 0;
   int rc = (int)cudaErrorInvalidValue;
-  if (kind == 0) rc = dispatch<float, float>(g, R, V, W, src, &blocks);
-  if (kind == 1) rc = dispatch<double, double>(g, R, V, W, src, &blocks);
-  if (kind == 2) rc = dispatch<__nv_bfloat16, float>(g, R, V, W, src, &blocks);
+  if (kind == 0) rc = dispatch<float, float>(g, form, R, V, W, src, &blocks);
+  if (kind == 1) rc = dispatch<double, double>(g, form, R, V, W, src, &blocks);
+  if (kind == 2)
+    rc = dispatch<__nv_bfloat16, float>(g, form, R, V, W, src, &blocks);
   return rc == 0 ? blocks : -rc;
 }
 

@@ -1,5 +1,5 @@
 """Farmer — the canonical scalable 2-stage model (port of
-`mpisppy_tpu/models/farmer.py`, dense form only).
+`mpisppy_tpu/models/farmer.py`).
 
 Same model and stochastic data as the JAX builder: `500 *
 crops_multiplier` acres among `3 * crops_multiplier` crops (first
@@ -11,9 +11,14 @@ Variable layout per scenario (N = 4 * ncrops): acreage (nonant),
 sub-quota sales, super-quota sales, purchases.  Rows (M = 2*ncrops+1):
 cattle feed (>=), limit sold (<=), total acreage (<=).
 
-Not ported yet (ROADMAP queue A): the split-native `SplitA` storage
-(`split=True`, or "auto" above 1 GB), `scenario_source`,
-`export_corpus` and the `scenario_creator` modelling path.
+A is stored dense (S, M, N), or split-native (`ir.SplitA`: one shared
+(M, N) matrix plus the 2*nc per-scenario yield coefficients) with
+`split=True`, which "auto" picks when the dense tensor would exceed
+1 GB: the true-size instance (S=1000, crops_multiplier=1000) is ~288 GB
+dense in f32 and exists only split-native.
+
+Not ported yet (ROADMAP queue A): `scenario_source`, `export_corpus`
+and the `scenario_creator` modelling path.
 """
 
 from __future__ import annotations
@@ -21,9 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..device import resolve_device
-from ..ir import ScenarioBatch, TreeInfo
+from ..ir import ScenarioBatch, SplitA, TreeInfo
 
 INF = float("inf")
 
@@ -72,8 +76,6 @@ def scenario_block(indices, crops_multiplier=1, use_integer=False,
     S = idx.size
     if split == "auto":
         split = S * M * N * np.dtype(dtype).itemsize > 1 << 30
-    if split:
-        raise not_ported("split-native farmer storage (ir.SplitA)", 1)
 
     yields = np.stack([
         scenario_yields(int(i), crops_multiplier, seedoffset) for i in idx
@@ -93,15 +95,32 @@ def scenario_block(indices, crops_multiplier=1, use_integer=False,
     row_hi[:, -1] = 500.0 * crops_multiplier
     delta_rows = np.concatenate([r, r2]).astype(np.int32)
     delta_cols = np.concatenate([iac, iac]).astype(np.int32)
-    A = np.zeros((S, M, N), dtype=dtype)
-    A[:, r, iac] = yields
-    A[:, r, ipur] = 1.0
-    A[:, r, isub] = -1.0
-    A[:, r, isup] = -1.0
-    A[:, r2, isub] = 1.0
-    A[:, r2, isup] = 1.0
-    A[:, r2, iac] = -yields
-    A[:, -1, iac] = 1.0
+    if split:
+        shared = np.zeros((M, N), dtype=dtype)
+        shared[r, ipur] = 1.0
+        shared[r, isub] = -1.0
+        shared[r, isup] = -1.0
+        shared[r2, isub] = 1.0
+        shared[r2, isup] = 1.0
+        shared[-1, iac] = 1.0
+        # the yield slots stay zero in shared; the per-scenario values
+        # live in vals at (delta_rows, delta_cols)
+        A = SplitA(shared=_tensor(shared, dev),
+                   rows=_tensor(delta_rows, dev),
+                   cols=_tensor(delta_cols, dev),
+                   vals=_tensor(np.concatenate([yields, -yields], axis=1),
+                                dev))
+    else:
+        A = np.zeros((S, M, N), dtype=dtype)
+        A[:, r, iac] = yields
+        A[:, r, ipur] = 1.0
+        A[:, r, isub] = -1.0
+        A[:, r, isup] = -1.0
+        A[:, r2, isub] = 1.0
+        A[:, r2, isup] = 1.0
+        A[:, r2, iac] = -yields
+        A[:, -1, iac] = 1.0
+        A = _tensor(A, dev)
 
     lb = np.zeros((S, N), dtype=dtype)
     ub = np.full((S, N), INF, dtype=dtype)
@@ -150,7 +169,7 @@ def scenario_block(indices, crops_multiplier=1, use_integer=False,
     )
     return ScenarioBatch(
         c=_tensor(c, dev), qdiag=_tensor(np.zeros((S, N), dtype), dev),
-        A=_tensor(A, dev), row_lo=_tensor(row_lo, dev),
+        A=A, row_lo=_tensor(row_lo, dev),
         row_hi=_tensor(row_hi, dev), lb=_tensor(lb, dev),
         ub=_tensor(ub, dev),
         obj_const=_tensor(np.zeros((S,), dtype), dev),

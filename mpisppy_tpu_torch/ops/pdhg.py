@@ -1,5 +1,5 @@
 """Batched first-order LP/QP solver, restarted PDHG (port of
-`mpisppy_tpu/ops/pdhg.py`, dense per-scenario A).
+`mpisppy_tpu/ops/pdhg.py`).
 
 Problem form (per scenario):
 
@@ -12,15 +12,23 @@ estimate of ||A||_2, KKT-triggered adaptive restarts (or the fixed
 cadence), primal-weight rebalancing and per-scenario convergence
 freezing — the JAX solver's algorithm, step for step.  The JAX
 `lax.while_loop` is a Python loop here with one host sync per KKT
-check; every inner iteration chunk between checks is one launch of the
-hand-written CUDA kernel `ops.pdhg_chunk.fused_chunk`; the primal box
-projection and the dual prox (`_proj_box`, `_dual_prox`) live beside
-its plain twin in `ops/pdhg_chunk.py`, the only place the port runs
-them.
+check.
 
-Not ported yet (ROADMAP queue A): `ConsensusSpec`, `solve_compacted`,
-the SplitA preps, the sparse shared block and the `MPISPPY_TPU_PDHG`
-environment overlay.  Each raises
+The constraint operator comes dense per scenario (S, M, N), shared
+(1, M, N), or split (`ir.SplitA`, from the split preps
+`prepare_batch_split` / `prepare_split_native`, or its sparse-shared
+`SparseSplitA`).  Each inner iteration chunk between checks takes one
+of two routes (`ops.pdhg_chunk.pick_route`, a function of the form and
+the shape):
+* the kernel: one launch of the hand-written CUDA kernel
+  `ops.pdhg_chunk.fused_chunk`, in its dense, shared or split form;
+* the matmul route, for a shared or split operator too large for the
+  kernel's tile (true-size farmer) and for a sparse shared block: the
+  JAX package's XLA body as torch ops, with the shared block in one
+  large matrix product per matvec plus the delta `index_add_`.
+
+Not ported yet (ROADMAP queue A): `ConsensusSpec`, `solve_compacted`
+and the `MPISPPY_TPU_PDHG` environment overlay.  Each raises
 NotImplementedError where it would be selected.
 """
 
@@ -34,9 +42,11 @@ import numpy as np
 import torch
 
 from .. import not_ported
+from ..ir import SplitA
 from ..ir import bmatvec as _Ax
 from ..ir import bmatvec_t as _ATy
-from .pdhg_chunk import _proj_box, fused_chunk
+from .pdhg_chunk import (H100_SMEM_OPTIN, _dual_prox, _proj_box,
+                         fused_chunk, operator_form, pick_route, smem_optin)
 
 # hot_dtype knob -> (storage dtype, compute dtype) for the inner loop;
 # "bf16x" stores A in bfloat16 and does all arithmetic in float32 (the
@@ -53,16 +63,20 @@ def eps_floor(dtype):
 
 @dataclasses.dataclass(frozen=True)
 class PreparedBatch:
-    """Scaled constraint data, computed once per ScenarioBatch."""
-    A: Any        # (S, M, N) scaled: D_r @ A @ D_c
+    """Scaled constraint data, computed once per ScenarioBatch.  A
+    shared or split prep keeps one scaling for every scenario: A is
+    (1, M, N) or a SplitA, d_row (1, M), d_col (1, N) and, for a shared
+    A, anorm (1,)."""
+    A: Any        # (S, M, N), (1, M, N) or SplitA, scaled: D_r A D_c
     row_lo: Any   # (S, M) scaled: D_r * row_lo
     row_hi: Any   # (S, M)
-    d_row: Any    # (S, M) row scaling D_r
-    d_col: Any    # (S, N) col scaling D_c
-    anorm: Any    # (S,) ||A_scaled||_2 estimate
+    d_row: Any    # (S, M) or (1, M) row scaling D_r
+    d_col: Any    # (S, N) or (1, N) col scaling D_c
+    anorm: Any    # (S,) or (1,) ||A_scaled||_2 estimate
 
     def map(self, fn):
-        """A PreparedBatch with `fn` applied to every tensor."""
+        """A PreparedBatch with `fn` applied to every field (a SplitA
+        operator included: `fn` must accept it, as `.to` does)."""
         return PreparedBatch(**{f.name: fn(getattr(self, f.name))
                                 for f in dataclasses.fields(self)})
 
@@ -106,10 +120,11 @@ def _ruiz(A, n_iter=10, eps=1e-12):
 
 
 def _power_iteration(A, iters=40, seed=0, v0=None):
-    """||A||_2 per scenario via power iteration on A^T A.  The start
-    vector is a normal draw from a torch.Generator seeded `seed` on A's
-    device, or `v0` (S, N) when given (tests pass the JAX package's
-    PRNGKey(0) draw to compare norms)."""
+    """||A||_2 per scenario via power iteration on A^T A, for any
+    operator form (S is 1 for a shared A).  The start vector is a
+    normal draw from a torch.Generator seeded `seed` on A's device, or
+    `v0` (S, N) when given (tests pass the JAX package's PRNGKey(0)
+    draw to compare norms)."""
     S, M, N = A.shape
     if v0 is None:
         gen = torch.Generator(device=A.device).manual_seed(int(seed))
@@ -131,10 +146,14 @@ def _scale_rows(r, d_row):
 
 def prepare_batch(A, row_lo, row_hi, ruiz_iters=10, v0=None):
     """One-time per-batch preprocessing (scale + norm estimate) on the
-    device of A."""
-    if A.dim() != 3 or A.shape[0] != row_lo.shape[0]:
-        raise not_ported("a shared-A / SplitA prep (prepare_batch takes a "
-                         "dense per-scenario (S, M, N) A)", 1)
+    device of A, for a dense (S, M, N) or a shared (1, M, N) A; a
+    shared A keeps its singleton leading axis in the prep."""
+    if isinstance(A, SplitA):
+        raise TypeError("prepare_batch: a SplitA takes "
+                        "prepare_split_native")
+    if A.dim() != 3 or A.shape[0] not in (1, row_lo.shape[0]):
+        raise ValueError(f"prepare_batch: A must be (S, M, N) or "
+                         f"(1, M, N), got {tuple(A.shape)}")
     As, d_row, d_col = _ruiz(A, n_iter=ruiz_iters)
     anorm = _power_iteration(As, v0=v0)
     return PreparedBatch(
@@ -148,6 +167,94 @@ def prepare_batch(A, row_lo, row_hi, ruiz_iters=10, v0=None):
     )
 
 
+def prepare_batch_split(A, rows, cols, row_lo, row_hi, ruiz_iters=10,
+                        v0=None):
+    """prepare_batch for a dense (S, M, N) A whose matrix uncertainty is
+    confined to the (rows, cols) coordinates (the model's
+    model_meta["A_delta_idx"] declaration; ops/pdhg.py:223-252 of the
+    JAX package).  One row and one column scaling serve every scenario
+    (norms taken as the max over scenarios), which keeps the shared +
+    sparse structure.  Returns a prep whose A is a SplitA and whose
+    d_row / d_col are (1, M) / (1, N)."""
+    rows = torch.as_tensor(np.asarray(rows), dtype=torch.int32,
+                           device=A.device)
+    cols = torch.as_tensor(np.asarray(cols), dtype=torch.int32,
+                           device=A.device)
+    r, c = rows.long(), cols.long()
+    vals = A[:, r, c]                                  # (S, nnz)
+    A0 = A[0].clone()
+    A0[r, c] = 0.0                                     # (M, N) shared
+    return _prepare_split_core(A0, rows, cols, vals, row_lo, row_hi,
+                               ruiz_iters=ruiz_iters, v0=v0)
+
+
+def prepare_split_native(A, row_lo, row_hi, ruiz_iters=10, v0=None):
+    """prepare_batch_split for a batch born split (its A is a SplitA:
+    the only form at sizes where the dense tensor cannot exist)."""
+    return _prepare_split_core(A.shared, A.rows.to(torch.int32),
+                               A.cols.to(torch.int32), A.vals, row_lo,
+                               row_hi, ruiz_iters=ruiz_iters, v0=v0)
+
+
+def _prepare_split_core(A0, rows, cols, vals, row_lo, row_hi,
+                        ruiz_iters=10, v0=None):
+    """Ruiz equilibration of shared + deltas with one scaling for every
+    scenario, then the norm estimate (ops/pdhg.py:265-293)."""
+    M, N = A0.shape
+    r, c = rows.long(), cols.long()
+    A0 = A0.clone()
+    A0[r, c] = 0.0        # enforce the zeros-at-delta contract
+    eps = 1e-12
+    dr = torch.ones((M,), dtype=A0.dtype, device=A0.device)
+    dc = torch.ones((N,), dtype=A0.dtype, device=A0.device)
+    vs = vals
+    for _ in range(ruiz_iters):
+        vmax = torch.amax(torch.abs(vs), dim=0)        # (nnz,) over scens
+        rmax = torch.amax(torch.abs(A0), dim=1).scatter_reduce(
+            0, r, vmax, "amax")
+        cmax = torch.amax(torch.abs(A0), dim=0).scatter_reduce(
+            0, c, vmax, "amax")
+        sr = torch.where(rmax <= eps, 1.0,
+                         1.0 / torch.sqrt(torch.clamp(rmax, min=eps)))
+        sc = torch.where(cmax <= eps, 1.0,
+                         1.0 / torch.sqrt(torch.clamp(cmax, min=eps)))
+        A0 = A0 * sr[:, None] * sc[None, :]
+        vs = vs * sr[r] * sc[c]
+        dr = dr * sr
+        dc = dc * sc
+    As = SplitA(shared=A0, rows=rows, cols=cols, vals=vs)
+    anorm = _power_iteration(As, v0=v0)
+    d_row = dr[None, :]
+    return PreparedBatch(
+        A=As,
+        row_lo=_scale_rows(row_lo, d_row),
+        row_hi=_scale_rows(row_hi, d_row),
+        d_row=d_row,
+        d_col=dc[None, :],
+        anorm=torch.clamp(anorm, min=1.0),
+    )
+
+
+def _gather_prep(prep: PreparedBatch, ii) -> PreparedBatch:
+    """A PreparedBatch gathered to the scenario rows `ii`
+    (ops/pdhg.py:296-317).  Shared leaves (leading dim 1) serve every
+    scenario and are not gathered; a SplitA gathers only its
+    per-scenario values."""
+    def take(a):
+        return a if a.shape[0] == 1 else a[ii]
+
+    A = prep.A
+    if isinstance(A, SplitA):
+        # replace (not the constructor): a SparseSplitA stays sparse
+        A = dataclasses.replace(A, vals=A.vals[ii])
+    else:
+        A = take(A)
+    return PreparedBatch(
+        A=A, row_lo=take(prep.row_lo), row_hi=take(prep.row_hi),
+        d_row=take(prep.d_row), d_col=take(prep.d_col),
+        anorm=take(prep.anorm))
+
+
 def reprep_row_bounds(prep: PreparedBatch, row_lo, row_hi):
     """Rebuild a prep's scaled row bounds from new RAW bounds (valid
     while the constraint operator is unchanged)."""
@@ -157,8 +264,19 @@ def reprep_row_bounds(prep: PreparedBatch, row_lo, row_hi):
 
 
 def _unscale_A(A, dr, dc):
-    """User-space view of a scaled dense constraint operator."""
+    """User-space view of a scaled constraint operator, in its own form
+    (a SplitA's shared block is rescaled into a new tensor)."""
+    if isinstance(A, SplitA):
+        return dataclasses.replace(
+            A, shared=A.scale_shared(1.0 / dr[0], 1.0 / dc[0]),
+            vals=A.vals / (dr[:, A.rows] * dc[:, A.cols]))
     return A / dr[:, :, None] / dc[:, None, :]
+
+
+def _cast_A(A, dt):
+    """Storage-dtype cast of a constraint operator (SplitA.astype keeps
+    its subclass)."""
+    return A.astype(dt) if isinstance(A, SplitA) else A.to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -206,7 +324,7 @@ def _residuals(x, y, c, qdiag, A, row_lo, row_hi, lb, ub):
 
 
 class PDHGSolver:
-    """Restarted PDHG solver over a ScenarioBatch (dense A).  Typical
+    """Restarted PDHG solver over a ScenarioBatch.  Typical
     use is through SPOpt.solve_loop, which supplies PH-modified
     objectives as plain tensors."""
 
@@ -247,9 +365,9 @@ class PDHGSolver:
                 f"hot_dtype must be one of {sorted(HOT_DTYPES)} (or "
                 f"None/'f64' for full precision), got {hot_dtype!r}")
         self.hot_dtype = hot_dtype
-        if float(sparse_threshold) > 0.0:
-            raise not_ported("pdhg_sparse_threshold (SparseSplitA)", 1)
-        self.sparse_threshold = 0.0
+        # shared-block density below which a SplitA prep is stored as a
+        # SparseSplitA (spopt._build_prep); 0 disables
+        self.sparse_threshold = float(sparse_threshold)
 
     @classmethod
     def from_options(cls, options):
@@ -379,7 +497,7 @@ class PDHGSolver:
             lbs, ubs = lbs.to(compute), ubs.to(compute)
             xs0, ys0 = xs0.to(compute), ys0.to(compute)
             rlo, rhi = rlo.to(compute), rhi.to(compute)
-            A = A.to(store)
+            A = _cast_A(A, store)
         S = cs.shape[0]
         # clamp the tolerance to what the loop dtype can express; a
         # comparison of a tensor with a Python float rounds the float
@@ -394,19 +512,25 @@ class PDHGSolver:
 
         anorm = prep.anorm.to(cs.dtype)
         qmax = torch.amax(qs, dim=1)
-        # the chunk kernel takes contiguous per-scenario tensors
+        # the chunk kernel takes contiguous tensors
         A = A.contiguous()
         kin = [t.contiguous() for t in (cs, qs, lbs, ubs, rlo, rhi)]
-        # the KKT checks read A in the loop's compute dtype, cast up once
-        # per solve when it is stored lower (jnp.einsum promotes bf16 x
-        # f32 operands to f32 in the JAX package)
-        A_kkt = A if A.dtype == cs.dtype else A.to(cs.dtype)
+        # the KKT checks and the matmul route read A in the loop's
+        # compute dtype, cast up once per solve when it is stored lower
+        # (jnp promotes bf16 x f32 operands to f32 in the JAX package)
+        A_kkt = A if A.dtype == cs.dtype else _cast_A(A, cs.dtype)
+        form = operator_form(A, S)
+        optin = (smem_optin() if cs.device.type == "cuda"
+                 else H100_SMEM_OPTIN)
+        route = pick_route(form, A.shape[1], A.shape[2], A.dtype, optin)
 
         def steps(x, y, omega, n):
-            """n PDHG iterations in one kernel launch: final iterates +
-            running sums."""
+            """n PDHG iterations, in one kernel launch or on the matmul
+            route: final iterates + running sums."""
             sigma = 0.9 * omega / anorm
             tau = 0.9 / (omega * anorm + 0.9 * qmax)
+            if route == "matmul":
+                return matmul_chunk(A_kkt, *kin, x, y, tau, sigma, n)
             return fused_chunk(A, *kin, x.contiguous(), y.contiguous(),
                                tau.contiguous(), sigma.contiguous(), n)
 
@@ -514,7 +638,7 @@ class PDHGSolver:
         # (a hot prep may be stored below the caller's precision: the
         # verdict promotes it, as jnp's type promotion does)
         _, pres, dres, gap = kkt_score(
-            x, y, data=(cs_f, qs_f, A_f.to(out_dt), rlo_f.to(out_dt),
+            x, y, data=(cs_f, qs_f, _cast_A(A_f, out_dt), rlo_f.to(out_dt),
                         rhi_f.to(out_dt), lbs_f, ubs_f))
         # unscale
         xu = x * dc
@@ -526,7 +650,7 @@ class PDHGSolver:
         rhi_u = torch.where(torch.isfinite(prep.row_hi),
                             prep.row_hi / dr, prep.row_hi)
         dobj = _residuals(xu, yu, c, qdiag,
-                          _unscale_A(prep.A, dr, dc).to(out_dt),
+                          _cast_A(_unscale_A(prep.A, dr, dc), out_dt),
                           rlo_u, rhi_u, lb, ub)[4]
         return SolveResult(
             x=xu, y=yu, obj=pobj, dual_obj=dobj + obj_const,
@@ -534,6 +658,35 @@ class PDHGSolver:
             converged=converged | ((pres < eps_out) & (dres < eps_out)
                                    & (gap < eps_out)),
             iters=k * ne, restarts=restarts)
+
+
+#: inner iteration chunks run on the matmul route in this process
+matmul_chunks = 0
+
+
+def matmul_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n):
+    """n PDHG iterations through `ir.bmatvec` / `bmatvec_t`: the JAX
+    package's XLA body (ops/pdhg.py:942-955) as torch ops.  Its matvecs
+    are plain large matrix products on the shared block (one
+    (S, N) x (N, M) product each) plus the delta `index_add_`; it is
+    the route of operators too large for the chunk kernel's tile, not a
+    kernel's plain version.  Returns (x, y, x_sum, y_sum)."""
+    global matmul_chunks
+    matmul_chunks += 1
+    t2 = tau[:, None]
+    s2 = sigma[:, None]
+    xs = torch.zeros_like(x)
+    ys = torch.zeros_like(y)
+    for _ in range(int(n)):
+        grad = cs + qs * x + _ATy(A, y)
+        xn = _proj_box(x - t2 * grad, lbs, ubs)
+        xt = 2.0 * xn - x
+        v = y + s2 * _Ax(A, xt)
+        yn = _dual_prox(v, sigma, rlo, rhi)
+        x, y = xn, yn
+        xs = xs + xn
+        ys = ys + yn
+    return x, y, xs, ys
 
 
 def round_to_dtype(v, dtype):

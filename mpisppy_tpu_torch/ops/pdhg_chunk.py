@@ -13,17 +13,35 @@ returns (x, y, x_sum, y_sum), the contract of the JAX package's
   as torch ops.  That is the only reason the twin is ever taken: there
   is no fallback from a failed launch and no move between devices.
 
-A is stored in float32, float64 or bfloat16; the vectors and outputs
-are float32 or float64, and a bfloat16 A goes with float32 vectors
-(hot_dtype="bf16x": bf16 storage, f32 arithmetic).
+The operator A comes in one of three forms (`operator_form`), each
+with its own plain version beside it:
+
+* "dense": a per-scenario (S, M, N) tensor (`fused_chunk_reference`);
+* "shared": one (1, M, N) matrix for every scenario
+  (`fused_chunk_shared_reference`);
+* "split": an `ir.SplitA`, a shared (M, N) block plus per-scenario
+  deltas at (rows, cols) (`fused_chunk_split_reference`).
+
+The kernel builds the same per-scenario tile from each form, so the
+shared and split forms give the dense kernel's result on
+`A.to_dense()` bit for bit.  A is stored in float32, float64 or
+bfloat16; the vectors and outputs are float32 or float64, and a
+bfloat16 A goes with float32 vectors (hot_dtype="bf16x": bf16 storage,
+f32 arithmetic).
 
 `pick_variant` chooses the kernel's tile shape and where it reads A
-from (registers, shared or global memory) from (M, N, dtype); it is
-plain Python so that the CPU tests reach it.
+from (registers, shared or global memory) from (M, N, dtype), and
+`pick_route` whether a solve's chunks go to the kernel at all: a shared
+or split operator too large for a tile held in registers or shared
+memory takes the solver's matmul route instead (`ops/pdhg.py`), since
+the kernel's global-memory source would re-read the shared matrix once
+per block per step.  Both are plain Python, so the CPU tests reach
+them.
 
-`launches` counts kernel launches (never twin calls) and
-`launch_shapes` counts them by (S, M, N, dtype of A), so a run can show
-that its solves went through the kernel and with which shapes.
+`launches` counts kernel launches (never plain-version calls) and
+`launch_shapes` the same by (form, S, M, N, dtype of A), so a run can
+show that its solves went through the kernel, in which forms and with
+which shapes (`launches_by` sums them by form or dtype).
 """
 
 from __future__ import annotations
@@ -41,9 +59,11 @@ from pathlib import Path
 
 import torch
 
+from ..ir import SparseSplitA, SplitA
+
 #: number of CUDA kernel launches made by `fused_chunk` in this process
 launches = 0
-#: the same launches by (S, M, N, dtype name of A)
+#: the same launches by (form, S, M, N, dtype name of A)
 launch_shapes = collections.Counter()
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "pdhg_chunk.cu"
@@ -59,6 +79,8 @@ _ENTRY = {(torch.float32, torch.float32): "pdhg_chunk_f32",
           (torch.bfloat16, torch.float32): "pdhg_chunk_bf16"}
 _KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _SOURCES = ("registers", "shared", "global")
+#: operator forms the kernel takes (csrc `Form`)
+FORMS = ("dense", "shared", "split")
 
 #: per-block shared memory an H100 kernel may opt in to (bytes)
 H100_SMEM_OPTIN = 232448
@@ -83,15 +105,20 @@ class Variant:
     def tile_cols(self):
         return 128 * self.vectors_per_lane
 
-    def smem_bytes(self, M, N, compute_bytes, storage_bytes):
+    def smem_bytes(self, M, N, compute_bytes, storage_bytes,
+                   form="dense"):
         """Dynamic shared memory of one block (csrc `smem_bytes`): the
         state vectors and the (warps, N) reduction buffer, plus A itself
-        when it is staged in shared memory."""
+        when it is staged in shared memory, or the split form's
+        per-thread delta patch beside a register tile."""
         mp = -(-M // self.tile_rows) * self.tile_rows
         np_ = -(-N // self.tile_cols) * self.tile_cols
         b = ((7 + self.warps) * np_ + 4 * mp) * compute_bytes
         if self.source == "shared":
             b += M * N * storage_bytes
+        elif self.source == "registers" and form == "split":
+            b += (32 * self.warps * self.rows_per_thread
+                  * self.vectors_per_lane * 4 * compute_bytes)
         return b
 
 
@@ -128,6 +155,56 @@ def pick_variant(M, N, dtype, smem_optin=H100_SMEM_OPTIN) -> Variant:
                          f"state needs {v.smem_bytes(M, N, cb, sb)} bytes "
                          f"of shared memory, the limit is {smem_optin}")
     return v
+
+
+def operator_form(A, S):
+    """The form of a chunk operator for a batch of S scenarios:
+    "dense" ((S, M, N) with S > 1), "shared" (any (1, M, N) tensor, S = 1
+    included: the form follows the operator's shape, so a shared matrix
+    beyond the tile takes the matmul route whatever number of scenarios
+    is left to solve on it), "split" (a dense-shared SplitA) or "sparse"
+    (a SparseSplitA, which only the matmul route takes)."""
+    if isinstance(A, SparseSplitA):
+        return "sparse"
+    if isinstance(A, SplitA):
+        return "split"
+    if A.dim() == 3 and A.shape[0] == 1:
+        return "shared"
+    return "dense"
+
+
+def pick_route(form, M, N, dtype, smem_optin=H100_SMEM_OPTIN):
+    """"kernel" or "matmul": where a solve runs the chunks of an
+    operator of `form` with M rows and N columns stored in `dtype`.  A
+    dense per-scenario A takes the kernel whenever it can launch (any
+    source of A); its state beyond the shared-memory limit takes the
+    matmul route.  A shared or split A takes the kernel when
+    `pick_variant` holds its tile in registers or shared memory, and
+    the matmul route otherwise: there the kernel would read the shared
+    matrix from device memory once per block per step (S x M x N x
+    bytes a step), where a matrix product reuses it.  A sparse shared
+    block always takes the matmul route (torch's sparse product)."""
+    if form not in FORMS + ("sparse",):
+        raise ValueError(f"pick_route: unknown operator form {form!r}")
+    if form == "sparse":
+        return "matmul"
+    try:
+        v = pick_variant(M, N, dtype, smem_optin)
+    except ValueError:
+        return "matmul"
+    if form == "dense":
+        return "kernel"
+    return "kernel" if v.source in ("registers", "shared") else "matmul"
+
+
+def launches_by(key):
+    """Kernel launches in `launch_shapes` summed by "form", "dtype" or
+    "form/dtype" (e.g. {"split/float32": 12})."""
+    out = collections.Counter()
+    for (form, _, _, _, dt), n in launch_shapes.items():
+        out[{"form": form, "dtype": dt,
+             "form/dtype": f"{form}/{dt}"}[key]] += n
+    return dict(out)
 
 
 def _nvcc():
@@ -179,12 +256,13 @@ def load_library():
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
-            ptr = ctypes.c_void_p
+            ptr, cint = ctypes.c_void_p, ctypes.c_int
             for name in _ENTRY.values():
                 fn = getattr(lib, name)
-                fn.argtypes = [ptr] * 15 + [ctypes.c_int] * 8 + [ptr]
+                fn.argtypes = ([ptr] * 4 + [cint] * 2 + [ptr] * 14
+                               + [cint] * 8 + [ptr])
                 fn.restype = ctypes.c_int
-            lib.pdhg_chunk_occupancy.argtypes = [ctypes.c_int] * 7
+            lib.pdhg_chunk_occupancy.argtypes = [ctypes.c_int] * 8
             lib.pdhg_chunk_occupancy.restype = ctypes.c_int
             lib.pdhg_chunk_smem_optin.argtypes = []
             lib.pdhg_chunk_smem_optin.restype = ctypes.c_int
@@ -204,13 +282,15 @@ def smem_optin():
     return _SMEM_OPTIN
 
 
-def occupancy(M, N, dtype):
+def occupancy(M, N, dtype, form="dense"):
     """(variant, resident blocks per SM) of the kernel for an (S, M, N)
-    A stored in `dtype` on the current card.  Needs the CUDA library."""
+    A of `form` stored in `dtype` on the current card.  Needs the CUDA
+    library."""
     v = pick_variant(M, N, dtype, smem_optin())
     got = load_library().pdhg_chunk_occupancy(
-        _KIND[dtype], v.rows_per_thread, v.vectors_per_lane, v.warps,
-        _SOURCES.index(v.source), int(M), int(N))
+        _KIND[dtype], FORMS.index(form), v.rows_per_thread,
+        v.vectors_per_lane, v.warps, _SOURCES.index(v.source), int(M),
+        int(N))
     if got < 0:
         raise RuntimeError(f"pdhg_chunk occupancy query failed: CUDA error "
                            f"{-got}")
@@ -218,15 +298,44 @@ def occupancy(M, N, dtype):
 
 
 def _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
-    ts = {"A": A, "cs": cs, "qs": qs, "lb": lb, "ub": ub, "rlo": rlo,
-          "rhi": rhi, "x": x, "y": y, "tau": tau, "sigma": sigma}
+    """Validate the inputs; returns the operator's form."""
+    ts = {"cs": cs, "qs": qs, "lb": lb, "ub": ub, "rlo": rlo, "rhi": rhi,
+          "x": x, "y": y, "tau": tau, "sigma": sigma}
     for k, t in ts.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"fused_chunk: {k} must be a tensor")
-    if A.dim() != 3:
-        raise ValueError(f"fused_chunk: A must be (S, M, N), got "
-                         f"{tuple(A.shape)}")
-    S, M, N = A.shape
+    if cs.dim() != 2:
+        raise ValueError(f"fused_chunk: cs must be (S, N), got "
+                         f"{tuple(cs.shape)}")
+    S = cs.shape[0]
+    if isinstance(A, SparseSplitA):
+        raise TypeError("fused_chunk: a SparseSplitA takes the solver's "
+                        "matmul route, not the kernel")
+    if isinstance(A, SplitA):
+        for k in ("shared", "rows", "cols", "vals"):
+            if not isinstance(getattr(A, k), torch.Tensor):
+                raise TypeError(f"fused_chunk: A.{k} must be a tensor")
+        if A.shared.dim() != 2 or A.rows.dim() != 1 \
+                or A.cols.shape != A.rows.shape \
+                or tuple(A.vals.shape) != (S, A.rows.shape[0]):
+            raise ValueError("fused_chunk: a SplitA needs shared (M, N), "
+                             "rows and cols (nnz,) and vals (S, nnz)")
+        if A.rows.dtype != torch.int32 or A.cols.dtype != torch.int32:
+            raise TypeError("fused_chunk: SplitA rows and cols must be "
+                            "int32")
+        if A.vals.dtype != A.shared.dtype:
+            raise TypeError("fused_chunk: SplitA vals and shared must "
+                            "share one dtype")
+        ts.update(shared=A.shared, rows=A.rows, cols=A.cols, vals=A.vals)
+    else:
+        if not isinstance(A, torch.Tensor):
+            raise TypeError("fused_chunk: A must be a tensor or a SplitA")
+        if A.dim() != 3 or A.shape[0] not in (1, S):
+            raise ValueError(f"fused_chunk: A must be (S, M, N) or "
+                             f"(1, M, N), got {tuple(A.shape)}")
+        ts["A"] = A
+    form = operator_form(A, S)
+    _, M, N = A.shape
     want = {"cs": (S, N), "qs": (S, N), "lb": (S, N), "ub": (S, N),
             "x": (S, N), "rlo": (S, M), "rhi": (S, M), "y": (S, M),
             "tau": (S,), "sigma": (S,)}
@@ -245,7 +354,8 @@ def _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
     dt = compute_dtype(A.dtype)
     dev = A.device
     for k, t in ts.items():
-        if k != "A" and t.dtype != dt:
+        if k not in ("A", "shared", "vals", "rows", "cols") \
+                and t.dtype != dt:
             raise TypeError(f"fused_chunk: {k} is {t.dtype}, A is "
                             f"{A.dtype}; all inputs must share one dtype")
         if t.device != dev:
@@ -258,6 +368,7 @@ def _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
                          f"int, got {n_steps!r}")
     if max(S, M, N, n_steps) >= 2 ** 31:
         raise ValueError("fused_chunk: sizes must fit a 32-bit int")
+    return form
 
 
 def _proj_box(x, lb, ub):
@@ -296,35 +407,70 @@ def fused_chunk_reference(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma,
     return x, y, xs, ys
 
 
+def fused_chunk_shared_reference(A, cs, qs, lb, ub, rlo, rhi, x, y, tau,
+                                 sigma, n_steps):
+    """The plain version of the shared form: one (1, M, N) A for every
+    scenario, run as the dense plain version on its broadcast."""
+    S = cs.shape[0]
+    return fused_chunk_reference(A.expand((S,) + tuple(A.shape[1:])), cs,
+                                 qs, lb, ub, rlo, rhi, x, y, tau, sigma,
+                                 n_steps)
+
+
+def fused_chunk_split_reference(A, cs, qs, lb, ub, rlo, rhi, x, y, tau,
+                                sigma, n_steps):
+    """The plain version of the split form: the dense plain version on
+    `A.to_dense()`, the per-scenario matrices the kernel assembles in
+    its tile."""
+    return fused_chunk_reference(A.to_dense(), cs, qs, lb, ub, rlo, rhi,
+                                 x, y, tau, sigma, n_steps)
+
+
+#: each form's plain version
+REFERENCE = {"dense": fused_chunk_reference,
+             "shared": fused_chunk_shared_reference,
+             "split": fused_chunk_split_reference}
+
+
 def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
     """Run `n_steps` PDHG iterations for the whole batch (solver-space
-    inputs; tau/sigma are per-scenario (S,) step sizes).  Returns
-    (x, y, x_sum, y_sum) in the vectors' dtype."""
-    _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps)
+    inputs; tau/sigma are per-scenario (S,) step sizes).  A is dense
+    (S, M, N), shared (1, M, N) or a SplitA.  Returns (x, y, x_sum,
+    y_sum) in the vectors' dtype."""
+    form = _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps)
     if A.device.type == "cpu":
-        return fused_chunk_reference(A, cs, qs, lb, ub, rlo, rhi, x, y,
-                                     tau, sigma, n_steps)
+        return REFERENCE[form](A, cs, qs, lb, ub, rlo, rhi, x, y, tau,
+                               sigma, n_steps)
     if A.device.type != "cuda":
         raise ValueError(f"fused_chunk: unsupported device {A.device}")
+    S, (_, M, N) = cs.shape[0], A.shape
+    if pick_route(form, M, N, A.dtype, smem_optin()) != "kernel":
+        raise ValueError(f"fused_chunk: a {form} A of {M} x {N} in "
+                         f"{A.dtype} takes the solver's matmul route")
     fn = getattr(load_library(), _ENTRY[(A.dtype, cs.dtype)])
-    S, M, N = A.shape
     v = pick_variant(M, N, A.dtype, smem_optin())
+    if form == "split":
+        ptrs = (A.shared.data_ptr(), A.rows.data_ptr(), A.cols.data_ptr(),
+                A.vals.data_ptr())
+        nnz = A.rows.shape[0]
+    else:
+        ptrs, nnz = (A.data_ptr(), None, None, None), 0
     xo, xso = torch.empty_like(x), torch.empty_like(x)
     yo, yso = torch.empty_like(y), torch.empty_like(y)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(A.data_ptr(), cs.data_ptr(), qs.data_ptr(), lb.data_ptr(),
-                ub.data_ptr(), rlo.data_ptr(), rhi.data_ptr(),
-                x.data_ptr(), y.data_ptr(), tau.data_ptr(),
-                sigma.data_ptr(), xo.data_ptr(), yo.data_ptr(),
-                xso.data_ptr(), yso.data_ptr(), S, M, N, int(n_steps),
-                v.rows_per_thread, v.vectors_per_lane, v.warps,
-                _SOURCES.index(v.source), stream)
+        rc = fn(*ptrs, nnz, FORMS.index(form), cs.data_ptr(),
+                qs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+                rlo.data_ptr(), rhi.data_ptr(), x.data_ptr(), y.data_ptr(),
+                tau.data_ptr(), sigma.data_ptr(), xo.data_ptr(),
+                yo.data_ptr(), xso.data_ptr(), yso.data_ptr(), S, M, N,
+                int(n_steps), v.rows_per_thread, v.vectors_per_lane,
+                v.warps, _SOURCES.index(v.source), stream)
     if rc != 0:
         raise RuntimeError(
             f"pdhg_chunk kernel launch failed: CUDA error {rc} "
-            f"(S={S}, M={M}, N={N}, dtype={A.dtype}, {v})")
+            f"({form}, S={S}, M={M}, N={N}, dtype={A.dtype}, {v})")
     global launches
     launches += 1
-    launch_shapes[(S, M, N, str(A.dtype).replace("torch.", ""))] += 1
+    launch_shapes[(form, S, M, N, str(A.dtype).replace("torch.", ""))] += 1
     return xo, yo, xso, yso

@@ -32,7 +32,6 @@ from . import global_toc
 from .ir import ScenarioBatch, node_segment_sum
 from .ops.pdhg import round_to_dtype
 from .spopt import SPOpt, _sync
-from .utils import mfu as _mfu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,10 +294,10 @@ class PHBase(SPOpt):
         self._ext("pre_solve_loop")
         t0 = time.time()
         self._run_superstep()
-        b = self.batch
         it_n = int(self.state.solve_iters)
-        self._flops += _mfu.pdhg_flops(it_n, b.num_scens, b.num_rows,
-                                       b.num_vars, self.solver.check_every)
+        # FLOPs discounted by the shared block's density, and the
+        # sparse-matvec count (phbase.py:645-653)
+        self._account(self.prep, it_n)
         self._kernel_iters += it_n
         self._restarts_total += int(self.state.solve_restarts)
         self._active_fraction = float(self.state.active_frac)

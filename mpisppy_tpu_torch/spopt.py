@@ -5,15 +5,22 @@ PH's W and prox terms, the Lagrangian W-only objective and xhat fixings
 arrive as tensor arguments.  Expectations are probability-weighted sums
 over the scenario axis.
 
+`_build_prep` takes the JAX package's three routes
+(`spopt.py:118-140`): a batch born split-native gets the split prep;
+a dense batch that declares its matrix-uncertainty coordinates
+(`model_meta["A_delta_idx"]`) gets the delta-split prep with one shared
+scaling unless `no_split_prep` is set; anything else gets the dense
+per-scenario prep.  `pdhg_sparse_threshold` turns a split prep's shared
+block sparse.
+
 Differences from the JAX package, each on purpose:
-* `_build_prep` always takes the dense per-scenario route (the JAX
-  package's `no_split_prep=True` route); the SplitA prep is not ported
-  yet (ROADMAP queue A).
 * `_certified_resolve` runs its float64 re-solve on the batch's own
-  device — the CUDA kernel has a float64 entry point — where the JAX
-  package moves it to the host CPU.
-* `_xhat_cache` builds the dense reduced system (the JAX package's
-  branch for `no_split_prep=True`).
+  device — the CUDA kernel has a float64 entry point and the matmul
+  route runs in any dtype — where the JAX package moves it to the host
+  CPU.
+* The norm estimates of the preps built here (the xhat reduced system,
+  the f64 certify prep) start from a torch.Generator draw, not the JAX
+  PRNGKey(0) draw, so they differ slightly (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -25,8 +32,12 @@ import numpy as np
 import torch
 
 from . import global_toc
-from .ops.pdhg import (HOT_DTYPES, PDHGSolver, prepare_batch,
-                       reprep_row_bounds, round_to_dtype)
+from .ir import (SparseSplitA, SplitA, bmatvec, delta_idx, shared_density,
+                 sparsify_split)
+from .ops.pdhg import (HOT_DTYPES, PDHGSolver, _cast_A, _gather_prep,
+                       prepare_batch, prepare_batch_split,
+                       prepare_split_native, reprep_row_bounds,
+                       round_to_dtype)
 from .spbase import SPBase
 from .utils import mfu as _mfu
 
@@ -43,6 +54,12 @@ class SPOpt(SPBase):
         else:
             global_toc("Preparing batch (Ruiz scaling + ||A|| estimate)")
             self.prep = self._build_prep(hot=self.solver.hot_dtype)
+        # density of the shared block the prep carries (None for a
+        # prep that is not split): the FLOP accounting and pdhg_stats
+        self._shared_nnz_frac = (shared_density(self.prep.A)
+                                 if isinstance(self.prep.A, SplitA)
+                                 else None)
+        self._sparse_matvecs = 0
         self._x_warm = None
         self._y_warm = None
         self._named_warm = {}
@@ -63,15 +80,55 @@ class SPOpt(SPBase):
 
     def _build_prep(self, hot=None):
         """Ruiz scaling + ||A|| estimate over the batch constraint data,
-        in the hot dtype's compute precision when `hot` applies."""
+        in the hot dtype's compute precision when `hot` applies, by the
+        route the batch selects (split-native, delta-split unless
+        `no_split_prep`, or dense).  With a solver sparse_threshold, a
+        split prep whose shared block is sparse enough becomes a
+        SparseSplitA (Ruiz scaling keeps the zero pattern, so the
+        density after scaling is the structural one)."""
         b = self.batch
         A, row_lo, row_hi = b.A, b.row_lo, b.row_hi
         pair = self.solver._hot_pair(b.c.dtype) if hot else None
         if pair is not None:
             compute = pair[1]
-            A, row_lo, row_hi = (A.to(compute), row_lo.to(compute),
+            A, row_lo, row_hi = (_cast_A(A, compute), row_lo.to(compute),
                                  row_hi.to(compute))
-        return prepare_batch(A, row_lo, row_hi)
+        delta = delta_idx(b)
+        if b.split_A:
+            # born split-native: the split prep is the only prep
+            prep = prepare_split_native(A, row_lo, row_hi)
+        elif (delta is not None and not b.shared_A
+                and not self.options.get("no_split_prep")):
+            prep = prepare_batch_split(A, delta[0], delta[1], row_lo,
+                                       row_hi)
+        else:
+            prep = prepare_batch(A, row_lo, row_hi)
+        if self.solver.sparse_threshold > 0.0 \
+                and isinstance(prep.A, SplitA):
+            spA = sparsify_split(prep.A, self.solver.sparse_threshold)
+            if spA is not prep.A:
+                prep = dataclasses.replace(prep, A=spA)
+        return prep
+
+    @staticmethod
+    def _prep_density(prep):
+        """FLOP discount for the matvec model: a sparse shared block
+        does ~density x the dense work; other preps pay full price."""
+        if isinstance(prep.A, SparseSplitA):
+            return float(prep.A.shared_nnz_frac)
+        return 1.0
+
+    def _account(self, prep, it_n, S=None):
+        """FLOPs and sparse-matvec count of `it_n` inner iterations
+        over `prep` (spopt.py:293-303)."""
+        b = self.batch
+        self._flops += _mfu.pdhg_flops(
+            it_n, b.num_scens if S is None else S, b.num_rows, b.num_vars,
+            self.solver.check_every, density=self._prep_density(prep))
+        if isinstance(prep.A, SparseSplitA):
+            # two shared-block products (forward + transpose) per inner
+            # iteration go through torch's sparse product
+            self._sparse_matvecs += 2 * it_n
 
     def _promoted_pair(self):
         """The full-precision (solver, prep) pair used once a solve's
@@ -123,8 +180,7 @@ class SPOpt(SPBase):
             torch.sum(~res.converged & live)
             / max(int(torch.sum(live)), 1))
         it_n = int(res.iters)
-        self._flops += _mfu.pdhg_flops(it_n, b.num_scens, b.num_rows,
-                                       b.num_vars, solver.check_every)
+        self._account(prep, it_n)
         self._kernel_iters += it_n
         self._restarts_total += int(torch.sum(res.restarts))
         if certify:
@@ -184,12 +240,20 @@ class SPOpt(SPBase):
                                                hot_dtype=None)
         full = self._np_cache.get(prep_key)
         if full is None:
-            full = prepare_batch(A.to(f64), row_lo.to(f64),
-                                 row_hi.to(f64))
+            if isinstance(A, SplitA):
+                # split-native constraint data: the f64 prep stays
+                # split too (the dense (S, M, N) tensor may not fit)
+                full = prepare_split_native(A.astype(f64), row_lo.to(f64),
+                                            row_hi.to(f64))
+            else:
+                full = prepare_batch(A.to(f64), row_lo.to(f64),
+                                     row_hi.to(f64))
             self._np_cache[prep_key] = full
-        # row bounds may be call-specific (xhat candidates shift them):
-        # rebuild the scaled fields from the raw bounds
-        prep64 = reprep_row_bounds(full.map(lambda t: t[idx]),
+        # shared leaves (a shared A, a SplitA's shared block and its
+        # scalings) serve every straggler as they are; row bounds may
+        # be call-specific (xhat candidates shift them): rebuild the
+        # scaled fields from the raw bounds
+        prep64 = reprep_row_bounds(_gather_prep(full, idx),
                                    row_lo.to(f64)[idx],
                                    row_hi.to(f64)[idx])
         r64 = self._solver64.solve(
@@ -197,9 +261,7 @@ class SPOpt(SPBase):
             sub(ub, b.ub), obj_const=sub(obj_const, b.obj_const),
             x0=res.x.to(f64)[idx], y0=res.y.to(f64)[idx],
             eps=float(self.solver_eps))
-        self._flops += _mfu.pdhg_flops(
-            int(r64.iters), idx.numel(), b.num_rows, b.num_vars,
-            self.solver.check_every)
+        self._account(prep64, int(r64.iters), S=idx.numel())
         self._certify_wall += time.time() - t_cert
         n_ok = int(torch.sum(r64.converged))
         if n_ok < idx.numel():
@@ -252,6 +314,7 @@ class SPOpt(SPBase):
         self._restarts_total = 0
         self._active_fraction = 1.0
         self._promotions = 0
+        self._sparse_matvecs = 0
 
     def _kernel_dtype(self):
         """dtype the hot-loop matvecs execute in, as a name."""
@@ -268,6 +331,8 @@ class SPOpt(SPBase):
             "active_fraction_final": float(self._active_fraction),
             "hot_dtype": self.solver.hot_dtype,
             "promotions_total": int(self._promotions),
+            "sparse_matvecs": int(self._sparse_matvecs),
+            "shared_nnz_frac": self._shared_nnz_frac,
         }
 
     def solve_stats(self):
@@ -349,8 +414,39 @@ class SPOpt(SPBase):
             pos = np.flatnonzero(stage <= upto_stage)
             na = na[pos]
         nai = torch.as_tensor(na, dtype=torch.long, device=self.device)
-        A_na = b.A[:, :, nai]                      # (S, M, Kf)
-        A_red = b.A.clone()
+        delta = delta_idx(b)
+        if b.split_A:
+            # split-native: the reduced system exists only if every
+            # scenario-varying entry sits in an eliminated column
+            # (farmer: the yields multiply the nonant acreages); then
+            # A_red is the shared matrix with the nonant columns zeroed,
+            # and the per-scenario part lives in the A_na shift, a
+            # SplitA over the reduced (Kf-wide) column space
+            cols_np = b.A.cols.cpu().numpy()
+            if not np.all(np.isin(cols_np, na)):
+                raise NotImplementedError(
+                    "xhat evaluation on a split-native batch requires "
+                    "all A-delta columns to be eliminated (nonant) "
+                    "columns; this batch has deltas in kept columns")
+            pos_of = np.zeros(b.num_vars, np.int64)
+            pos_of[na] = np.arange(na.size)
+            A_na = SplitA(shared=b.A.shared[:, nai], rows=b.A.rows,
+                          cols=torch.as_tensor(pos_of[cols_np],
+                                               dtype=torch.int32,
+                                               device=self.device),
+                          vals=b.A.vals)
+            A_red = b.A.shared[None].clone()
+        elif (delta is not None and not b.shared_A
+                and not self.options.get("no_split_prep")
+                and np.all(np.isin(np.asarray(delta[1]), na))):
+            # every scenario-varying entry sits in an eliminated column,
+            # so the reduced system is scenario-independent: stored
+            # (1, M, N), its solves take the shared form
+            A_na = b.A[:, :, nai]                  # (S, M, Kf)
+            A_red = b.A[0:1].clone()
+        else:
+            A_na = b.A[:, :, nai]                  # (S, M, Kf)
+            A_red = b.A.clone()
         A_red[:, :, nai] = 0.0
         c_na = b.c[:, nai]
         q_na = b.qdiag[:, nai]
@@ -373,7 +469,7 @@ class SPOpt(SPBase):
         def impl(vals, x0, y0, eps):
             vals2 = torch.atleast_2d(vals).to(b.c.dtype).expand(
                 b.num_scens, na.size)
-            shift = torch.einsum("smk,sk->sm", A_na, vals2)
+            shift = bmatvec(A_na, vals2)
             prep2, rlo, rhi = self._shift_and_widen_rows(
                 prep, b.row_lo, b.row_hi, shift, ftol)
             oc = (b.obj_const + torch.sum(c_na * vals2, dim=1)
@@ -382,7 +478,8 @@ class SPOpt(SPBase):
                 prep2, c_red, q_red, lb_red, ub_red, oc, x0, y0,
                 None, eps), (rlo, rhi, oc)
 
-        hit = {"pos": pos, "A_red": A_red, "c_red": c_red,
+        hit = {"pos": pos, "A_na": A_na, "A_red": A_red, "prep": prep,
+               "c_red": c_red,
                "q_red": q_red, "lb_red": lb_red, "ub_red": ub_red,
                "impl": impl}
         self._np_cache[key] = hit
@@ -406,9 +503,7 @@ class SPOpt(SPBase):
             x0 = torch.zeros_like(b.c)
             y0 = torch.zeros_like(b.row_lo)
         res, (rlo, rhi, oc) = cache["impl"](vals, x0, y0, self.solver_eps)
-        self._flops += _mfu.pdhg_flops(
-            int(res.iters), b.num_scens, b.num_rows, b.num_vars,
-            self.solver.check_every)
+        self._account(cache["prep"], int(res.iters))
         if certify == "auto":
             certify = not (self.feas_prob(res, tol=tol) > 1.0 - 1e-6)
         if certify:

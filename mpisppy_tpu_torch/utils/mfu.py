@@ -12,7 +12,9 @@ def pdhg_flops(iters, S, M, N, check_every=40, density=1.0):
     """FLOPs of `iters` PDHG iterations over an (S, M, N) batch: two
     batched matvecs per inner iteration (2*S*M*N FLOP each, one FLOP
     per multiply and per add), plus the KKT check's two matvecs every
-    `check_every` iterations."""
+    `check_every` iterations.  `density` debits the model when the
+    shared block's products go through the sparse product
+    (ir.SparseSplitA): they touch only its stored entries."""
     per_iter = 4.0 * S * M * N * density
     checks = 4.0 * S * M * N * density / max(check_every, 1)
     return float(iters) * (per_iter + checks)

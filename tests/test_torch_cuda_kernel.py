@@ -7,6 +7,10 @@ conftest (which imports jax) is skipped:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernel.py
 
 Without a CUDA device every test skips (decided inside the fixture).
+The shared (1, M, N) and split (`ir.SplitA`) forms assemble the same
+per-scenario tile as the dense form, so on the card each equals the
+dense kernel on `A.to_dense()` bit for bit, and matches its own plain
+version to the tolerance below.
 Tolerance: max|kernel - twin| <= tol * max(1, max|twin|), tol 1e-9 in
 float64 and 2e-4 in float32 and with A stored in bfloat16 (float32
 vectors; the twin casts the same bf16 values up) — the two differ only
@@ -21,9 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from mpisppy_tpu_torch import ir
 from mpisppy_tpu_torch.models import farmer
-from mpisppy_tpu_torch.ops import pdhg_chunk
-from mpisppy_tpu_torch.ops.pdhg import PDHGSolver, prepare_batch
+from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+from mpisppy_tpu_torch.ops.pdhg import (PDHGSolver, prepare_batch,
+                                        prepare_split_native)
 from mpisppy_tpu_torch.ops.pdhg_chunk import (compute_dtype, fused_chunk,
                                               fused_chunk_reference,
                                               pick_variant)
@@ -84,7 +90,7 @@ def test_kernel_matches_twin(cuda, dtype, shape):
     if shape == (16, 61, 120):
         assert v.source == "registers"  # the main path's shapes
     before = pdhg_chunk.launches
-    key = (S, M, N, str(dtype).replace("torch.", ""))
+    key = ("dense", S, M, N, str(dtype).replace("torch.", ""))
     by_key = pdhg_chunk.launch_shapes[key]
     got = fused_chunk(*args, 40)
     torch.cuda.synchronize()
@@ -151,7 +157,7 @@ def test_bf16x_solver_on_card_matches_cpu(cuda):
     solver = PDHGSolver(eps=1e-4, hot_dtype="bf16x")
     ref = solver.solve(prep, b.c, b.qdiag, b.lb, b.ub)
     bc = b.to(cuda)
-    key = (8, b.A.shape[1], b.A.shape[2], "bfloat16")
+    key = ("dense", 8, b.A.shape[1], b.A.shape[2], "bfloat16")
     before = pdhg_chunk.launch_shapes[key]
     res = solver.solve(prep.map(lambda t: t.to(cuda)), bc.c, bc.qdiag,
                        bc.lb, bc.ub)
@@ -159,3 +165,125 @@ def test_bf16x_solver_on_card_matches_cpu(cuda):
     assert bool(res.converged.all()) and bool(ref.converged.all())
     np.testing.assert_allclose(res.obj.cpu().numpy(), ref.obj.numpy(),
                                rtol=1e-3)
+
+
+def _split_of(A, rng, nnz):
+    """A SplitA whose assembled matrices are A with `nnz` random delta
+    slots per scenario (a repeated (row, col) pair included)."""
+    S, M, N = A.shape
+    rows = rng.integers(0, M, size=nnz).astype(np.int32)
+    cols = rng.integers(0, N, size=nnz).astype(np.int32)
+    rows[-1], cols[-1] = rows[0], cols[0]
+    shared = A[0].clone()
+    shared[torch.as_tensor(rows).long(), torch.as_tensor(cols).long()] = 0
+    vals = torch.as_tensor(rng.standard_normal((S, nnz)), dtype=A.dtype,
+                           device=A.device)
+    return ir.SplitA(shared=shared.contiguous(),
+                     rows=torch.as_tensor(rows, device=A.device),
+                     cols=torch.as_tensor(cols, device=A.device),
+                     vals=vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 61, 120), (5, 64, 128),
+                                   (4, 65, 129), (3, 9, 300)],
+                         ids=["farmer_cm10", "tile_full", "smem_edge",
+                              "wide_N"])
+@pytest.mark.parametrize("form", ["shared", "split"])
+def test_shared_and_split_forms_equal_the_dense_kernel(cuda, dtype, shape,
+                                                       form):
+    S, M, N = shape
+    args = _instance(S, M, N, 5, dtype, cuda)
+    rng = np.random.default_rng(6)
+    if form == "shared":
+        A = args[0][:1].contiguous()
+        dense = A.expand(S, M, N).contiguous()
+        ref = pdhg_chunk.fused_chunk_shared_reference
+    else:
+        A = _split_of(args[0], rng, 2 * M)
+        dense = A.to_dense().contiguous()
+        ref = pdhg_chunk.fused_chunk_split_reference
+    before = pdhg_chunk.launches_by("form").get(form, 0)
+    got = fused_chunk(A, *args[1:], 40)
+    torch.cuda.synchronize()
+    assert pdhg_chunk.launches_by("form")[form] == before + 1
+    want_dense = fused_chunk(dense, *args[1:], 40)
+    for g, w in zip(got, want_dense):
+        assert torch.equal(g, w)
+    _assert_matches(got, ref(A, *args[1:], 40), dtype)
+
+
+def test_occupancy_of_the_forms(cuda):
+    for form in ("dense", "shared", "split"):
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            v, blocks = pdhg_chunk.occupancy(61, 120, dtype, form)
+            assert v.source == "registers" and blocks >= 1
+
+
+def test_wrapper_refuses_a_matmul_route_operator(cuda):
+    A = torch.zeros((1, 300, 300), dtype=torch.float64, device=cuda)
+    args = _instance(2, 300, 300, 7, torch.float64, cuda)
+    with pytest.raises(ValueError, match="matmul route"):
+        fused_chunk(A, *args[1:], 3)
+
+
+def test_split_prep_solver_on_card_matches_cpu(cuda):
+    """farmer-8 born split: the card runs the split form of the kernel,
+    the CPU its plain version, from one prep; the verdicts and
+    objectives match within the solve tolerance, and the matmul route
+    on the card gives the same objectives."""
+    b = farmer.build_batch(8, crops_multiplier=2, split=True, device="cpu")
+    prep = prepare_split_native(b.A, b.row_lo, b.row_hi)
+    solver = PDHGSolver(eps=1e-7)
+    ref = solver.solve(prep, b.c, b.qdiag, b.lb, b.ub)
+    bc = b.to(cuda)
+    pc = prep.map(lambda t: t.to(cuda))
+    before = pdhg_chunk.launches_by("form").get("split", 0)
+    res = solver.solve(pc, bc.c, bc.qdiag, bc.lb, bc.ub)
+    assert pdhg_chunk.launches_by("form")["split"] - before \
+        == res.iters // 40 > 0
+    assert bool(res.converged.all()) and bool(ref.converged.all())
+    np.testing.assert_allclose(res.obj.cpu().numpy(), ref.obj.numpy(),
+                               rtol=1e-6)
+    m0 = pdhg.matmul_chunks
+    sparse = pdhg.PreparedBatch(**{**prep.__dict__, "A": ir.sparsify_split(
+        pc.A, 0.9)}).map(lambda t: t.to(cuda))
+    mm = solver.solve(sparse, bc.c, bc.qdiag, bc.lb, bc.ub)
+    assert pdhg.matmul_chunks - m0 == mm.iters // 40 > 0
+    assert bool(mm.converged.all())
+    np.testing.assert_allclose(mm.obj.cpu().numpy(), ref.obj.numpy(),
+                               rtol=1e-6)
+
+
+def test_single_straggler_on_a_shared_A_beyond_the_tile(cuda):
+    """One scenario left for a float64 re-solve on a shared (1, M, N)
+    operator whose kernel state would not fit in shared memory: the
+    operator keeps its shared form at S=1, so the solve takes the matmul
+    route instead of failing to launch, and agrees with the same solve
+    on the CPU."""
+    M, N = 1500, 3000
+    with pytest.raises(ValueError, match="cannot launch"):
+        pick_variant(M, N, torch.float64)
+    rng = np.random.default_rng(11)
+    A = torch.from_numpy(rng.standard_normal((1, M, N)) / np.sqrt(N))
+    rlo = torch.from_numpy(-rng.random((1, M)) - 1.0)
+    rhi = torch.from_numpy(rng.random((1, M)) + 1.0)
+    c = torch.from_numpy(rng.standard_normal((1, N)))
+    q = torch.full((1, N), 0.1, dtype=torch.float64)
+    lb, ub = torch.full((1, N), -5.0, dtype=torch.float64), \
+        torch.full((1, N), 5.0, dtype=torch.float64)
+    solver = PDHGSolver(max_iters=120, eps=1e-9)
+    prep = prepare_batch(A, rlo, rhi, v0=torch.ones((1, N),
+                                                    dtype=torch.float64))
+    ref = solver.solve(prep, c, q, lb, ub)
+    m0, k0 = pdhg.matmul_chunks, pdhg_chunk.launches
+    got = solver.solve(prep.map(lambda t: t.to(cuda)),
+                       *(t.to(cuda) for t in (c, q, lb, ub)))
+    assert pdhg.matmul_chunks - m0 == got.iters // 40 == 3
+    assert pdhg_chunk.launches == k0
+    assert got.iters == ref.iters
+    for f in ("x", "y", "obj"):
+        g, w = getattr(got, f).cpu(), getattr(ref, f)
+        assert float((g - w).abs().max()) <= 1e-9 * max(
+            1.0, float(w.abs().max()))

@@ -7,6 +7,8 @@ shared-A batched matvecs, the per-node segment sum) are compared to
 1e-12 on inputs drawn from a seeded numpy generator.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -53,12 +55,17 @@ def test_scenario_yields_equal_and_split_refused():
     for i in (0, 4, 17):
         np.testing.assert_array_equal(farmer.scenario_yields(i, 3, 7),
                                       jfarmer.scenario_yields(i, 3, 7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        farmer.build_batch(3, split=True, device="cpu")
-    # "auto" switches to split storage above 1 GB of dense A: refused
-    # before anything is allocated
-    with pytest.raises(NotImplementedError, match="SplitA"):
-        farmer.build_batch(20000, crops_multiplier=10, device="cpu")
+    # split storage is ported (tests/test_torch_split_native.py); what is
+    # refused of a split batch is its dense copy beyond 5e8 elements (a
+    # shared block of 10000 x 20000 that is a view of one zero, so the
+    # test allocates nothing)
+    b = farmer.build_batch(3, split=True, device="cpu")
+    assert b.split_A and b.A.shape == (3, 7, 12)
+    big = dataclasses.replace(b, A=dataclasses.replace(
+        b.A, shared=torch.zeros((), dtype=torch.float64).expand(10000,
+                                                                20000)))
+    with pytest.raises(MemoryError, match="densify"):
+        big.densify()
 
 
 @pytest.fixture(scope="module")

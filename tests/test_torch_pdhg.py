@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from mpisppy_tpu.models import farmer as jfarmer
 from mpisppy_tpu.ops import pdhg as jpdhg
+from mpisppy_tpu_torch import ir
 from mpisppy_tpu_torch.convert import prep_from_arrays, to_arrays
 from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.ops import pdhg
@@ -200,8 +201,13 @@ def test_unported_paths_refuse(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pdhg.PDHGSolver(compact_threshold=0.5)
     assert pdhg.PDHGSolver(hot_dtype="bf16x").hot_dtype == "bf16x"
+    # the sparse shared block is ported, bar its bfloat16 storage
+    assert pdhg.PDHGSolver(sparse_threshold=0.3).sparse_threshold == 0.3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdhg.PDHGSolver(sparse_threshold=0.3)
+        ir.sparsify_split(ir.SplitA(
+            shared=torch.eye(2), rows=torch.zeros(1, dtype=torch.int32),
+            cols=torch.zeros(1, dtype=torch.int32),
+            vals=torch.ones((2, 1))), 0.9).astype(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pdhg.PDHGSolver().solve_compacted()
     monkeypatch.setenv("MPISPPY_TPU_PDHG", "restart_mode=fixed")
