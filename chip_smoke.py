@@ -13,10 +13,12 @@ Phases, one JSON line each (any failure exits non-zero):
               shared (1, M, N), split SplitA) against its plain torch
               version at the main paths' shapes (farmer S=1000,
               crops_multiplier=10: M=61, N=120; n_steps=40; inputs from
-              the dense and the split prep) with A stored in f32, f64
-              and bf16 (f32 vectors); the shared and split forms must
-              equal the dense kernel on the assembled matrices exactly;
-              timings, the bound, the variant, blocks per SM and waves
+              the dense and the split prep; and the shared form at UC's
+              fallback shape (1, 174, 114), S=250, A staged in shared
+              memory) with A stored in f32, f64 and bf16 (f32 vectors);
+              the shared and split forms must equal the dense kernel on
+              the assembled matrices exactly; timings, the bound, the
+              variant, blocks per SM and waves
   4. slice    PH on farmer at full width (S=1000, crops_multiplier=10,
               f32, the bench's options with its dense prep,
               no_split_prep=True): Iter0, a few PH iterations, one xhat
@@ -39,11 +41,24 @@ Phases, one JSON line each (any failure exits non-zero):
               device memory under 20 GB, the per-step time of the
               matmul route against its bound, a profiled PH iteration,
               and the gap loop's projected wall
-  8. golden   farmer-3 in f64 through ph_main: E[obj] = -108390 +- 20,
+  8. uc       bench.py's uc1000 row at full width (21 units, 24 h:
+              M=2502, N=1536, shared A, f32; depth cut as its `cuts` says):
+              Iter0, PH iterations with a Lagrangian bound every 5, the
+              threshold commitments screened in one stacked solve,
+              screened 1-opt sweeps, the consensus-EF dual bound (no
+              kernel launch); walls per step, chunk counts, peak
+              memory, inner, outer and gap.  Then the fallback size
+              (6 units, 6 h, S=250): Iter0 and 2 PH iterations must
+              launch the kernel's shared form at (1, 174, 114)
+  9. sslp     bench.py's sslp50 row: SIPLIB sslp_5_25 at S=50, f32, one
+              consensus EF solve and its f64 certify to a gap under 1%,
+              the objective within 1e-4 of HiGHS on the same EF LP
+ 10. golden   farmer-3 in f64 through ph_main: E[obj] = -108390 +- 20,
               xbar ~ (170, 80, 250)
 Then the kernels line, the nvidia-smi line, and the result line.
 
-Imports nothing of jax and nothing of the JAX package.  Exits non-zero,
+Imports nothing of jax and nothing of the JAX package (scipy only for
+the HiGHS reference of the sslp phase).  Exits non-zero,
 printing no result, without a CUDA device.
 """
 
@@ -82,6 +97,34 @@ SLICE_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": PH_ITERS,
               "eps_ladder": {"start": 1e-3, "min": 1e-4, "couple": 0.1},
               "pdhg_hot_dtype": "f32"}
 SPLIT_OPTS = {k: v for k, v in SLICE_OPTS.items() if k != "no_split_prep"}
+
+# bench.py's uc1000 row (bench.py:309-474): stochastic unit commitment
+# at full width, 21 units (fleet_multiplier=7) over 24 h: M=2502,
+# N=1536, one shared (1, M, N) matrix, f32, with its accelerator
+# options.  Its depth is cut so that the phase ends in ~400 s (its
+# `cuts` field lists each cut): at S=1000 (tests/uc_steps_witness.py, an
+# NVIDIA H100 80GB HBM3 at 700 W) every PH solve runs to its
+# 20,000-iteration cap in ~13 s, one 64-flip screening launch of a 1-opt
+# sweep (64,000 stacked scenarios, 2,000 iterations) takes ~64 s and a
+# full sweep is 8 of them, and the EF bound ~140 s.  S=250 keeps a
+# sweep's launches at 16,000 scenarios; 10 PH iterations keep two
+# Lagrangian bounds; one sweep is one full (terminating) sweep.
+UC_FULL = {"H": 24, "fleet_multiplier": 7}
+UC_FULL_SHAPE = (1, 2502, 1536)
+UC_S, UC_PH_ITERS, UC_SWEEPS = 250, 10, 1
+UC_OPTS = {"defaultPHrho": 50.0, "convthresh": 0.0, "pdhg_eps": 1e-4,
+           "superstep_eps": 1e-4, "lagrangian_eps": 1e-4,
+           "pdhg_max_iters": 20000, "iter0_infeasibility_ok": True,
+           "iter0_certify": False, "certify_max_iters": 30000}
+# the bench's CPU fallback size of the same row (3 * 2 units, 6 h):
+# one shared (1, 174, 114) matrix, which the chunk kernel stages in
+# shared memory
+UC_FALLBACK = {"H": 6, "fleet_multiplier": 2}
+UC_FALLBACK_S = 250
+# bench.py's sslp50 row (bench.py:253-306): the SIPLIB sslp_5_25_50
+# instance's LP relaxation as one consensus EF solve, f32
+SSLP_S = 50
+SSLP_OPTS = {"pdhg_eps": 1e-5, "pdhg_max_iters": 200000}
 
 # H100 rates used for the bound (NVIDIA data sheets, dense, no sparsity):
 # (memory bytes/s, FP32 non-tensor FLOP/s, FP64 non-tensor FLOP/s)
@@ -328,11 +371,106 @@ def chunk_bytes(A, vec):
     return a + vin + vout
 
 
+def measure_form(form, A, vec, dname, peak, bw, peak_name, n_sm):
+    """One form of the chunk kernel on (A, vec): error against its plain
+    version and, for the shared and split forms, against the dense
+    kernel on the assembled matrices (must be 0); time, bound and
+    occupancy.  Returns the row."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    store = A.dtype
+    S = vec[0].shape[0]
+    ref = pdhg_chunk.REFERENCE[form]
+    got = pdhg_chunk.fused_chunk(A, *vec, N_STEPS)
+    torch.cuda.synchronize()
+    want = ref(A, *vec, N_STEPS)
+    err_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    err_rel = max(float((g - w).abs().max())
+                  / max(1.0, float(w.abs().max()))
+                  for g, w in zip(got, want))
+    for g in got:
+        check(bool(torch.isfinite(g).all()),
+              f"{form} {dname} kernel output not finite")
+    check(err_rel <= TOL[dname],
+          f"{form} {dname} kernel disagrees with its plain version:"
+          f" {err_rel:.3e} > {TOL[dname]:.0e}")
+    vs_dense = None
+    if form != "dense":
+        dense = (A.expand(S, -1, -1) if form == "shared"
+                 else A.to_dense()).contiguous()
+        d = pdhg_chunk.fused_chunk(dense, *vec, N_STEPS)
+        vs_dense = max(float((g - w).abs().max()) for g, w in zip(got, d))
+        check(vs_dense == 0.0,
+              f"{form} {dname} kernel differs from the dense kernel "
+              f"on the assembled matrices by {vs_dense}")
+
+    def call():
+        return pdhg_chunk.fused_chunk(A, *vec, N_STEPS)
+
+    ms = time_ms(call, queue_behind_sleep=True)
+    wrapper_us = host_us(call)
+    plain_ms = time_ms(lambda: ref(A, *vec, N_STEPS))
+    _, M, N = A.shape
+    nbytes = chunk_bytes(A, vec)
+    # FLOP at the compute type's peak (bf16 storage computes in f32):
+    # the two matvecs and the elementwise updates
+    flops = N_STEPS * S * (4 * M * N + 10 * N + 8 * M)
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / peak * 1e3
+    bound = max(t_bytes, t_ops)
+    variant, blocks = pdhg_chunk.occupancy(M, N, store, form)
+    return {
+        "form": form, "dtype": dname, "S": S, "M": M, "N": N,
+        "n_steps": N_STEPS, "max_abs_err": err_abs,
+        "max_rel_err": err_rel, "tol_rel": TOL[dname],
+        "max_abs_err_vs_dense_kernel": vs_dense,
+        "ms": ms, "wrapper_host_us": wrapper_us,
+        "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "share_of_bound": bound / ms,
+        "bytes": nbytes, "flops": flops,
+        "peaks": {"card": peak_name, "bytes_per_s": bw,
+                  "flops_per_s": peak},
+        "variant": dataclasses.asdict(variant),
+        "blocks_per_sm": blocks, "sms": n_sm,
+        "waves": S / (blocks * n_sm),
+        "library_ms": None}
+
+
+def uc_solver_space_inputs(dtype):
+    """The chunk's inputs as PDHGSolver builds them for UC at the
+    bench's fallback size (S=UC_FALLBACK_S, fleet_multiplier=2, H=6):
+    the shared (1, 174, 114) matrix of its Ruiz-scaled prep, cold start,
+    omega=1."""
+    import torch
+
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops.pdhg import prepare_batch
+    b = uc.build_batch(UC_FALLBACK_S, **UC_FALLBACK,
+                       dtype=np.float32 if dtype == torch.float32
+                       else np.float64)
+    p = prepare_batch(b.A, b.row_lo, b.row_hi)
+    dc = p.d_col
+    qs = b.qdiag * dc * dc
+    lbs = b.lb / dc
+    ubs = torch.where(torch.isfinite(b.ub), b.ub / dc, b.ub)
+    x = 0.5 * (lbs + ubs)            # UC's boxes are all finite
+    y = torch.zeros_like(p.row_lo)
+    tau = 0.9 / (p.anorm + 0.9 * qs.amax(dim=1))
+    sigma = (0.9 / p.anorm).expand(tau.shape)
+    vec = [t.contiguous() for t in (b.c * dc, qs, lbs, ubs, p.row_lo,
+                                    p.row_hi, x, y, tau, sigma)]
+    return [p.A.contiguous()] + vec
+
+
 def kernel_phase(name):
     """Each form of the chunk kernel at the main paths' shapes, in f32,
-    f64 and bf16 storage: error against its plain version; for the
-    shared and split forms also against the dense kernel on the
-    assembled matrices (must be 0); time, bound and occupancy."""
+    f64 and bf16 storage (farmer S=1000, cm=10: dense, shared, split;
+    UC's fallback size: the shared form at (1, 174, 114) with A staged
+    in shared memory): error against its plain version; for the shared
+    and split forms also against the dense kernel on the assembled
+    matrices (must be 0); time, bound and occupancy."""
     import torch
 
     from mpisppy_tpu_torch.ops import pdhg_chunk
@@ -340,14 +478,19 @@ def kernel_phase(name):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     base = {False: solver_space_inputs(torch.float32),
             True: solver_space_inputs(torch.float32, split=True)}
+    uc_base = uc_solver_space_inputs(torch.float32)
     rows = {}
     for store, peak in ((torch.float32, f32_peak),
                         (torch.float64, f64_peak),
                         (torch.bfloat16, f32_peak)):
         dname = str(store).replace("torch.", "")
-        for form in pdhg_chunk.FORMS:
-            split = form != "dense"
-            if store == torch.float64:
+        for form in pdhg_chunk.FORMS + ("shared_uc",):
+            split = form in ("shared", "split")
+            if form == "shared_uc":
+                args = (uc_solver_space_inputs(torch.float64)
+                        if store == torch.float64 else list(uc_base))
+                args[0] = args[0].to(store)
+            elif store == torch.float64:
                 args = solver_space_inputs(torch.float64, split=split)
             else:
                 args = list(base[split])
@@ -357,74 +500,25 @@ def kernel_phase(name):
             if form == "shared":
                 # the split prep's shared block as one matrix for all
                 A = A.shared[None].contiguous()
-            ref = pdhg_chunk.REFERENCE[form]
-            got = pdhg_chunk.fused_chunk(A, *vec, N_STEPS)
-            torch.cuda.synchronize()
-            want = ref(A, *vec, N_STEPS)
-            err_abs = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
-            err_rel = max(float((g - w).abs().max())
-                          / max(1.0, float(w.abs().max()))
-                          for g, w in zip(got, want))
-            for g in got:
-                check(bool(torch.isfinite(g).all()),
-                      f"{form} {dname} kernel output not finite")
-            check(err_rel <= TOL[dname],
-                  f"{form} {dname} kernel disagrees with its plain version:"
-                  f" {err_rel:.3e} > {TOL[dname]:.0e}")
-            vs_dense = None
-            if form != "dense":
-                dense = (A.expand(S, -1, -1) if form == "shared"
-                         else A.to_dense()).contiguous()
-                d = pdhg_chunk.fused_chunk(dense, *vec, N_STEPS)
-                vs_dense = max(float((g - w).abs().max())
-                               for g, w in zip(got, d))
-                check(vs_dense == 0.0,
-                      f"{form} {dname} kernel differs from the dense kernel "
-                      f"on the assembled matrices by {vs_dense}")
-
-            def call():
-                return pdhg_chunk.fused_chunk(A, *vec, N_STEPS)
-
-            ms = time_ms(call, queue_behind_sleep=True)
-            wrapper_us = host_us(call)
-            plain_ms = time_ms(lambda: ref(A, *vec, N_STEPS))
-            _, M, N = A.shape
-            nbytes = chunk_bytes(A, vec)
-            # FLOP at the compute type's peak (bf16 storage computes in
-            # f32): the two matvecs and the elementwise updates
-            flops = N_STEPS * S * (4 * M * N + 10 * N + 8 * M)
-            t_bytes = nbytes / bw * 1e3
-            t_ops = flops / peak * 1e3
-            bound = max(t_bytes, t_ops)
-            variant, blocks = pdhg_chunk.occupancy(M, N, store, form)
-            rows[(form, dname)] = {
-                "form": form, "dtype": dname, "S": S, "M": M, "N": N,
-                "n_steps": N_STEPS, "max_abs_err": err_abs,
-                "max_rel_err": err_rel, "tol_rel": TOL[dname],
-                "max_abs_err_vs_dense_kernel": vs_dense,
-                "ms": ms, "wrapper_host_us": wrapper_us,
-                "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "share_of_bound": bound / ms,
-                "bytes": nbytes, "flops": flops,
-                "peaks": {"card": peak_name, "bytes_per_s": bw,
-                          "flops_per_s": peak},
-                "variant": dataclasses.asdict(variant),
-                "blocks_per_sm": blocks, "sms": n_sm,
-                "waves": S / (blocks * n_sm),
-                "library_ms": None}
-            emit({"phase": "kernel", **rows[(form, dname)]})
+            row = measure_form("shared" if form == "shared_uc" else form,
+                               A, vec, dname, peak, bw, peak_name, n_sm)
+            if form == "shared_uc":
+                check(row["variant"]["source"] == "shared",
+                      f"UC's fallback shape took {row['variant']}")
+                row["case"] = "uc_fallback"
+            rows[(form, dname)] = row
+            emit({"phase": "kernel", **row})
     return rows
 
 
 def reset_counts():
-    """Zero the kernel's launch counts and the matmul route's chunk
-    count (just before a path is driven)."""
+    """Zero the kernel's launch counts and the matmul and consensus
+    routes' chunk counts (just before a path is driven)."""
     from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
     pdhg_chunk.launches = 0
     pdhg_chunk.launch_shapes.clear()
     pdhg.matmul_chunks = 0
+    pdhg.consensus_chunks = 0
 
 
 def launch_table():
@@ -832,6 +926,264 @@ def bf16x_phase():
     return out
 
 
+def uc_cuts():
+    """The depth cuts of the uc phase against the bench's row."""
+    cuts = {}
+    for key, got, bench in (("S", UC_S, 1000),
+                            ("ph_iterations", UC_PH_ITERS, 25),
+                            ("max_sweeps", UC_SWEEPS, 8)):
+        if got != bench:
+            cuts[key] = {"bench": bench, "here": got}
+    return cuts
+
+
+def uc_phase():
+    """bench.py's uc1000 protocol at full width (fleet_multiplier=7,
+    H=24), depth as UC_S / UC_PH_ITERS / UC_SWEEPS: Iter0, PH iterations
+    with a Lagrangian bound every 5, the 5 threshold commitments
+    screened in one stacked solve, screened 1-opt sweeps
+    (screen_eps=3e-3, screen_cap=2000), then the consensus-EF dual
+    bound.  The shared operator is beyond the kernel's tile, so the
+    per-scenario solves take the matmul route; the EF bound takes the
+    consensus route and must launch no kernel."""
+    import torch
+
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+    from mpisppy_tpu_torch.opt.ef import ef_dual_bound
+    from mpisppy_tpu_torch.opt.ph import PH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                    # count this path's run only
+    t0 = time.time()
+    b = uc.build_batch(UC_S, **UC_FULL, dtype=np.float32)
+    check(b.shared_A and tuple(b.A.shape) == UC_FULL_SHAPE,
+          f"UC at full width is {tuple(b.A.shape)}")
+    names = uc.scenario_names_creator(UC_S)
+    ph = PH(dict(UC_OPTS, PHIterLimit=UC_PH_ITERS), names, batch=b)
+    torch.cuda.synchronize()
+    steps = [{"step": "setup (build + prep)", "s": time.time() - t0}]
+    emit({"phase": "uc_step", **steps[-1]})
+
+    def timed(step, fn):
+        k0, m0, c0 = (pdhg_chunk.launches, pdhg.matmul_chunks,
+                      pdhg.consensus_chunks)
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        steps.append({"step": step, "s": time.time() - t,
+                      "matmul_chunks": pdhg.matmul_chunks - m0,
+                      "consensus_chunks": pdhg.consensus_chunks - c0,
+                      "kernel_launches": pdhg_chunk.launches - k0})
+        emit({"phase": "uc_step", **steps[-1]})
+        return out
+
+    outer = timed("iter0", ph.Iter0)
+    for k in range(UC_PH_ITERS):
+        timed(f"ph_iteration_{k + 1}", ph.ph_iteration)
+        if (k + 1) % 5 == 0:
+            # valid at any dual iterate (all-finite boxes), not
+            # monotone along the W path: keep the best
+            outer = max(outer, timed(f"lagrangian_{k + 1}",
+                                     ph.lagrangian_bound))
+    if UC_PH_ITERS % 5:
+        outer = max(outer, timed("lagrangian_final", ph.lagrangian_bound))
+    cands = uc.commitment_candidates(b, ph.root_xbar())
+    objs, feas, mass = timed("candidate_screen", lambda: (
+        ph.evaluate_candidates(cands, return_mass=True)))
+    ok = np.flatnonzero(feas)
+    check(ok.size > 0, f"no feasible threshold commitment (mass {mass})")
+    best = cands[int(ok[np.argmin(objs[ok])])]
+    # each stacked screen launch and each certifying xhat solve of the
+    # sweeps, timed
+    calls = []
+
+    def clocked(kind, fn):
+        def run(*a, **kw):
+            t = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append({"kind": kind, "s": time.time() - t,
+                          "k": len(a[0]) if kind == "screen" else 1})
+            return out
+        return run
+
+    ph.evaluate_candidates = clocked("screen", ph.evaluate_candidates)
+    ph.evaluate_xhat = clocked("verify", ph.evaluate_xhat)
+    best, inner = timed("one_opt_sweeps", lambda: uc.one_opt_commitment(
+        ph, b, best, max_sweeps=UC_SWEEPS, screen_eps=3e-3,
+        screen_cap=2000))
+    del ph.evaluate_candidates, ph.evaluate_xhat
+    check(np.isfinite(inner), "the 1-opt search lost its feasible "
+          "incumbent")
+    wall = time.time() - t0
+    k0 = pdhg_chunk.launches
+    ef_b, ef_s = timed("ef_dual_bound", lambda: ef_dual_bound(b, names))
+    ef_step = steps[-1]
+    check(pdhg_chunk.launches == k0, "the consensus EF solve launched "
+          "the chunk kernel")
+    check(ef_step["consensus_chunks"] > 0, "the EF bound ran no consensus "
+          "chunk")
+    check(np.isfinite(ef_b), f"EF dual bound {ef_b}")
+    outer_all = max(outer, ef_b)
+    check(outer_all <= inner + 1e-6 * abs(inner),
+          f"uc outer bound above inner: {outer_all} > {inner}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    for f, v in vars(ph.state).items():
+        if torch.is_tensor(v):
+            check(v.device.type == "cuda", f"state.{f} is on {v.device}")
+    screens = [c for c in calls if c["kind"] == "screen"]
+    verifies = [c for c in calls if c["kind"] == "verify"]
+    out = {"phase": "uc", "S": UC_S, **UC_FULL, "units": 3 * UC_FULL[
+               "fleet_multiplier"], "M": b.num_rows, "N": b.num_vars,
+           "dtype": "float32", "shared_A": True,
+           "cuts": uc_cuts(), "ph_iterations": UC_PH_ITERS,
+           "max_sweeps": UC_SWEEPS,
+           "inner": inner, "outer_ph": outer, "ef_dual_bound": ef_b,
+           "outer": outer_all,
+           "gap": (inner - outer_all) / max(abs(inner), 1e-9),
+           "threshold_objs": objs.tolist(), "threshold_feas_mass":
+           mass.tolist(), "iter0_feas_mass": ph.iter0_feas_mass,
+           "wall_s_to_recovered_commitment": wall, "ef_bound_s": ef_s,
+           "steps": steps,
+           "sweep_screen_launches": len(screens),
+           "sweep_screen_s": [c["s"] for c in screens],
+           "sweep_verify_calls": len(verifies),
+           "sweep_verify_s": [c["s"] for c in verifies],
+           "matmul_chunks": pdhg.matmul_chunks,
+           "consensus_chunks": pdhg.consensus_chunks,
+           "kernel_launches": pdhg_chunk.launches,
+           "kernel_launches_in_consensus_solves": 0,
+           "max_memory_allocated": peak_mem,
+           "pdhg_stats": ph.pdhg_stats(), "solve_stats": ph.solve_stats()}
+    emit(out)
+    return out
+
+
+def uc_fallback_pass():
+    """UC at the bench's fallback size (fleet_multiplier=2, H=6,
+    S=UC_FALLBACK_S) with the uc row's options: Iter0 and 2 PH
+    iterations, which must launch the kernel's shared form at
+    (1, 174, 114) (A staged in shared memory)."""
+    import torch
+
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    from mpisppy_tpu_torch.opt.ph import PH
+    b = uc.build_batch(UC_FALLBACK_S, **UC_FALLBACK, dtype=np.float32)
+    ph = PH(dict(UC_OPTS, PHIterLimit=2),
+            uc.scenario_names_creator(UC_FALLBACK_S), batch=b)
+    reset_counts()                    # count this path's run only
+    t0 = time.time()
+    trivial = ph.Iter0()
+    for _ in range(2):
+        ph.ph_iteration()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    key = ("shared", UC_FALLBACK_S, 174, 114, "float32")
+    launched = pdhg_chunk.launch_shapes.get(key, 0)
+    check(launched > 0, f"the UC fallback pass never launched {key}: "
+          f"{launch_table()}")
+    out = {"phase": "uc_fallback", "S": UC_FALLBACK_S, **UC_FALLBACK,
+           "dtype": "float32", "wall_s": wall, "trivial_bound": trivial,
+           "conv": ph.conv, "iter0_feas_mass": ph.iter0_feas_mass,
+           "launch_shapes": launch_table(),
+           "shared_174x114_launches": launched}
+    emit(out)
+    return out
+
+
+def ef_lp_oracle(b):
+    """The LP optimum of the batch's extensive form by HiGHS
+    (scipy.optimize.linprog), assembled from the batch's arrays in
+    float64: one copy of the nonant columns shared by every scenario
+    (two-stage, one tree node), each scenario's other columns its own,
+    the objective weighted by the scenario probabilities.  A plain
+    reference, independent of the PDHG solver."""
+    import scipy.sparse as sp
+    from scipy.optimize import linprog
+
+    def host(t):
+        return t.detach().cpu().double().numpy()
+
+    A, c, lb, ub = host(b.A), host(b.c), host(b.lb), host(b.ub)
+    rlo, rhi, prob = host(b.row_lo), host(b.row_hi), host(b.prob)
+    S, M, N = A.shape
+    na = b.nonant_idx.cpu().numpy()
+    rest = np.setdiff1d(np.arange(N), na)
+    K, R = na.size, rest.size
+    blocks, cost = [], [np.zeros(K)]
+    for s in range(S):
+        row = [sp.csr_matrix(A[s][:, na])] + [None] * S
+        row[1 + s] = sp.csr_matrix(A[s][:, rest])
+        blocks.append(row)
+        cost[0] += prob[s] * c[s, na]
+        cost.append(prob[s] * c[s, rest])
+    big = sp.bmat(blocks, format="csr")
+    lo, hi = rlo.reshape(-1), rhi.reshape(-1)
+    eq = lo == hi
+    up = ~eq & np.isfinite(hi)
+    dn = ~eq & np.isfinite(lo)
+    A_ub = sp.vstack([big[up], -big[dn]], format="csr")
+    b_ub = np.concatenate([hi[up], -lo[dn]])
+    bounds = ([(float(np.max(lb[:, j])), float(np.min(ub[:, j])))
+               for j in na]
+              + [(float(lb[s, j]), float(ub[s, j]))
+                 for s in range(S) for j in rest])
+    res = linprog(np.concatenate(cost), A_ub=A_ub, b_ub=b_ub,
+                  A_eq=big[eq], b_eq=lo[eq], bounds=bounds,
+                  method="highs")
+    check(res.status == 0, f"HiGHS failed on the EF LP: {res.message}")
+    return float(res.fun) + float(np.sum(prob * host(b.obj_const))), K + S * R
+
+
+def sslp_phase():
+    """bench.py's sslp50 row: SIPLIB sslp_5_25 at S=50, f32, one
+    consensus EF solve (pdhg_eps=1e-5, pdhg_max_iters=200000), then the
+    f64 certify; the objective against HiGHS on the same EF LP."""
+    import torch
+
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
+    b = sslp.build_batch(SSLP_S, instance="sslp_5_25", dtype=np.float32)
+    ef = ExtensiveForm(dict(SSLP_OPTS), sslp.scenario_names_creator(SSLP_S),
+                       batch=b)
+    torch.cuda.synchronize()
+    reset_counts()                    # count this path's run only
+    t0 = time.time()
+    res = ef.solve_extensive_form()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    obj, dual = ef.get_objective_value(), ef.get_dual_bound()
+    gap = abs(obj - dual) / max(abs(obj), 1e-9)
+    t = time.time()
+    lp, n_vars = ef_lp_oracle(b)
+    oracle_s = time.time() - t
+    rel = abs(obj - lp) / max(abs(lp), 1e-9)
+    check(pdhg_chunk.launches == 0, "the sslp EF solve launched the "
+          "chunk kernel")
+    check(pdhg.consensus_chunks > 0, "the sslp EF ran no consensus chunk")
+    check(gap <= 0.01, f"sslp EF gap {gap} above 1%")
+    check(rel <= 1e-4, f"sslp EF objective {obj} is {rel:.2e} from the "
+          f"HiGHS optimum {lp}")
+    x_na = b.nonants(res.x)
+    out = {"phase": "sslp", "S": SSLP_S, "instance": "sslp_5_25",
+           "dtype": "float32", "options": SSLP_OPTS, "wall_s": wall,
+           "objective": obj, "dual_bound": dual, "gap": gap,
+           "converged": bool(res.converged.all()), "iters": res.iters,
+           "root_solution": ef.get_root_solution().tolist(),
+           "nonant_spread": float((x_na - x_na[0]).abs().max()),
+           "highs_objective": lp, "rel_to_highs": rel,
+           "highs_ef_vars": n_vars, "highs_s": oracle_s,
+           "consensus_chunks": pdhg.consensus_chunks,
+           "matmul_chunks": pdhg.matmul_chunks,
+           "kernel_launches": pdhg_chunk.launches,
+           "solve_stats": ef.solve_stats()}
+    emit(out)
+    return out
+
+
 def golden_phase():
     import torch
 
@@ -888,6 +1240,15 @@ def main():
     true_size_phase(name, sp["gap_loop"])
     emit({"phase": "true_size_done", "s": time.time() - t})
     t = time.time()
+    uc_phase()
+    emit({"phase": "uc_done", "s": time.time() - t})
+    t = time.time()
+    ucf = uc_fallback_pass()
+    emit({"phase": "uc_fallback_done", "s": time.time() - t})
+    t = time.time()
+    sslp_phase()
+    emit({"phase": "sslp_done", "s": time.time() - t})
+    t = time.time()
     golden_phase()
     emit({"phase": "golden_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
@@ -896,15 +1257,17 @@ def main():
             "share_of_bound", "blocks_per_sm", "waves")
     # launches: the dense form's on the slice phase (path of the dense
     # prep), its bf16 storage's on the bf16x phase, the shared and split
-    # forms' on the split phase; each count was zeroed just before its
+    # forms' on the split phase, the shared form at UC's (1, 174, 114)
+    # on the UC fallback pass; each count was zeroed just before its
     # path ran
     launched = {"dense": (sl["kernel_launches"],
                           bx["launches_by_dtype"].get("bfloat16", 0)),
                 "shared": (sp["launches_by_form"].get("shared", 0),
                            None),
-                "split": (sp["launches_by_form"].get("split", 0), None)}
+                "split": (sp["launches_by_form"].get("split", 0), None),
+                "shared_uc": (ucf["shared_174x114_launches"], None)}
     kernels = []
-    for form in ("dense", "shared", "split"):
+    for form in ("dense", "shared", "split", "shared_uc"):
         f32 = rows[(form, "float32")]
         entry = {
             "name": "pdhg_chunk" if form == "dense"
@@ -918,7 +1281,9 @@ def main():
             "bound_by": f32["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes a chunk of "
                             "PDHG steps",
-            "form": form, "dtype": "float32",
+            "form": f32["form"], "dtype": "float32",
+            "shape": [f32["S"], f32["M"], f32["N"]],
+            "variant_source": f32["variant"]["source"],
             "share_of_bound": f32["share_of_bound"],
             "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"],
             "f64": {k: rows[(form, "float64")][k] for k in keys},

@@ -1,8 +1,9 @@
 """Carry problem and solver state into the port from plain arrays.
 
-The JAX package's `ScenarioBatch` (with its `TreeInfo`),
-`PreparedBatch` and `PHState` cross over as plain dicts of numpy
-arrays keyed by the JAX dataclasses' field names; `to_arrays` produces
+The JAX package's `ScenarioBatch` (with its `TreeInfo`; farmer, uc
+and sslp batches alike), `PreparedBatch`, `ConsensusSpec` and `PHState`
+cross over as plain dicts of numpy arrays keyed by the JAX
+dataclasses' field names; `to_arrays` produces
 such a dict from any dataclass whose array fields support
 `np.asarray` (the JAX objects, or the port's own).  Nothing here
 imports jax.
@@ -18,7 +19,7 @@ import torch
 from . import not_ported
 from .device import resolve_device
 from .ir import ScenarioBatch, SplitA, TreeInfo
-from .ops.pdhg import PreparedBatch
+from .ops.pdhg import ConsensusSpec, PreparedBatch
 from .phbase import PHState
 
 
@@ -97,6 +98,18 @@ def prep_from_arrays(d, device=None) -> PreparedBatch:
     dev = resolve_device(device)
     return PreparedBatch(**{f.name: (_operator if f.name == "A" else _t)(
         d[f.name], dev) for f in dataclasses.fields(PreparedBatch)})
+
+
+def consensus_from_arrays(d, device=None, v0=None) -> ConsensusSpec:
+    """ConsensusSpec from a dict of the JAX field names; `v0` is the
+    optional start vector of the EF power iteration."""
+    dev = resolve_device(device)
+    return ConsensusSpec(
+        node_of=_t(np.asarray(d["node_of"]), dev, torch.long),
+        nonant_idx=_t(np.asarray(d["nonant_idx"]), dev, torch.long),
+        num_nodes=int(d.get("num_nodes", 1)),
+        num_copies=int(d.get("num_copies", 1)),
+        v0=_t(None if v0 is None else np.asarray(v0), dev))
 
 
 def state_from_arrays(d, device=None) -> PHState:

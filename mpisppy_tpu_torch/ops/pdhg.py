@@ -27,8 +27,15 @@ the shape):
   JAX package's XLA body as torch ops, with the shared block in one
   large matrix product per matvec plus the delta `index_add_`.
 
-Not ported yet (ROADMAP queue A): `ConsensusSpec`, `solve_compacted`
-and the `MPISPPY_TPU_PDHG` environment overlay.  Each raises
+A consensus solve (`ConsensusSpec`: the extensive form, each (tree
+node, nonant slot) one variable shared by the node's scenarios) takes a
+third route, `consensus_chunk`, whatever the operator's form: every
+step segment-sums the gradient's nonant slots over the node members,
+which couples the scenarios that the kernel keeps apart.  The JAX
+package keeps these solves off its Pallas kernel for the same reason.
+
+Not ported yet (ROADMAP queue A): `solve_compacted` and the
+`MPISPPY_TPU_PDHG` environment overlay.  Each raises
 NotImplementedError where it would be selected.
 """
 
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import not_ported
-from ..ir import SplitA
+from ..ir import SplitA, node_segment_sum
 from ..ir import bmatvec as _Ax
 from ..ir import bmatvec_t as _ATy
 from .pdhg_chunk import (H100_SMEM_OPTIN, _dual_prox, _proj_box,
@@ -82,6 +89,29 @@ class PreparedBatch:
 
 
 @dataclasses.dataclass(frozen=True)
+class ConsensusSpec:
+    """Nonanticipativity structure of an extensive-form (EF) solve
+    (ops/pdhg.py:107-132 of the JAX package).  Each (tree node, nonant
+    slot) is one variable shared by the node's member scenarios: the
+    primal gradient is segment-summed over the members before each
+    update (the adjoint of the broadcast), so the batched iteration
+    solves the monolithic EF without building its matrix.  Needs one
+    column scaling for all scenarios (prepare_batch(shared_cols=True)
+    or a split prep).
+
+    num_copies stacks that many independent EFs along the scenario
+    axis: the norm estimate, step sizes, omega and the KKT verdict are
+    taken per copy.  v0 is the (S, N) start vector of the EF's power
+    iteration (the JAX package draws jax.random.normal(PRNGKey(0)));
+    None draws `normal_draw` on the solve's device."""
+    node_of: Any      # (S, K) node id per scenario per nonant slot
+    nonant_idx: Any   # (K,) column indices of the nonant slots
+    num_nodes: int = 1
+    num_copies: int = 1
+    v0: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
 class SolveResult:
     x: Any          # (S, N) primal solution (unscaled)
     y: Any          # (S, M) row duals (unscaled)
@@ -99,37 +129,50 @@ class SolveResult:
 # scaling
 # --------------------------------------------------------------------------
 
-def _ruiz(A, n_iter=10, eps=1e-12):
+def _ruiz(A, n_iter=10, eps=1e-12, shared_cols=False):
     """Ruiz equilibration: (A_scaled, d_row, d_col) with
-    A_scaled = diag(d_row) @ A @ diag(d_col), rows/cols ~unit inf-norm."""
+    A_scaled = diag(d_row) @ A @ diag(d_col), rows/cols ~unit inf-norm.
+    shared_cols: one column scaling for every scenario (the EF's column
+    space), which consensus solves need; d_col is then broadcast to
+    (S, N)."""
     S, M, N = A.shape
     dr = torch.ones((S, M), dtype=A.dtype, device=A.device)
-    dc = torch.ones((S, N), dtype=A.dtype, device=A.device)
+    dc = torch.ones((N,) if shared_cols else (S, N), dtype=A.dtype,
+                    device=A.device)
     for _ in range(n_iter):
         absA = torch.abs(A)
         rmax = torch.amax(absA, dim=2)                  # (S, M)
-        cmax = torch.amax(absA, dim=1)                  # (S, N)
+        cmax = torch.amax(absA, dim=(0, 1) if shared_cols else 1)
         sr = torch.where(rmax <= eps, 1.0,
                          1.0 / torch.sqrt(torch.clamp(rmax, min=eps)))
         sc = torch.where(cmax <= eps, 1.0,
                          1.0 / torch.sqrt(torch.clamp(cmax, min=eps)))
-        A = A * sr[:, :, None] * sc[:, None, :]
+        A = A * sr[:, :, None] * (sc[None, None, :] if shared_cols
+                                  else sc[:, None, :])
         dr = dr * sr
         dc = dc * sc
+    if shared_cols:
+        dc = dc[None, :].expand(S, N).contiguous()
     return A, dr, dc
+
+
+def normal_draw(shape, dtype, device, seed=0):
+    """The standard normal start vector of a power iteration: a draw
+    from a torch.Generator seeded `seed` on `device`.  (The JAX package
+    draws jax.random.normal(PRNGKey(seed)), which torch cannot
+    reproduce; tests that compare iteration counts hand its draw in
+    through `v0` or in place of this function.)"""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
 
 def _power_iteration(A, iters=40, seed=0, v0=None):
     """||A||_2 per scenario via power iteration on A^T A, for any
-    operator form (S is 1 for a shared A).  The start vector is a
-    normal draw from a torch.Generator seeded `seed` on A's device, or
-    `v0` (S, N) when given (tests pass the JAX package's PRNGKey(0)
-    draw to compare norms)."""
+    operator form (S is 1 for a shared A).  The start vector is
+    `normal_draw`, or `v0` (S, N) when given."""
     S, M, N = A.shape
     if v0 is None:
-        gen = torch.Generator(device=A.device).manual_seed(int(seed))
-        v = torch.randn((S, N), generator=gen, dtype=A.dtype,
-                        device=A.device)
+        v = normal_draw((S, N), A.dtype, A.device, seed)
     else:
         v = torch.as_tensor(np.array(v0), dtype=A.dtype, device=A.device)
     for _ in range(iters):
@@ -144,17 +187,19 @@ def _scale_rows(r, d_row):
     return torch.where(torch.isfinite(r), r * d_row, r)
 
 
-def prepare_batch(A, row_lo, row_hi, ruiz_iters=10, v0=None):
+def prepare_batch(A, row_lo, row_hi, ruiz_iters=10, v0=None,
+                  shared_cols=False):
     """One-time per-batch preprocessing (scale + norm estimate) on the
     device of A, for a dense (S, M, N) or a shared (1, M, N) A; a
-    shared A keeps its singleton leading axis in the prep."""
+    shared A keeps its singleton leading axis in the prep.
+    shared_cols: one column scaling for all scenarios (consensus)."""
     if isinstance(A, SplitA):
         raise TypeError("prepare_batch: a SplitA takes "
                         "prepare_split_native")
     if A.dim() != 3 or A.shape[0] not in (1, row_lo.shape[0]):
         raise ValueError(f"prepare_batch: A must be (S, M, N) or "
                          f"(1, M, N), got {tuple(A.shape)}")
-    As, d_row, d_col = _ruiz(A, n_iter=ruiz_iters)
+    As, d_row, d_col = _ruiz(A, n_iter=ruiz_iters, shared_cols=shared_cols)
     anorm = _power_iteration(As, v0=v0)
     return PreparedBatch(
         A=As,
@@ -283,9 +328,12 @@ def _cast_A(A, dt):
 # core iteration pieces (all batched over leading S axis)
 # --------------------------------------------------------------------------
 
-def _residuals(x, y, c, qdiag, A, row_lo, row_hi, lb, ub):
+def _residuals(x, y, c, qdiag, A, row_lo, row_hi, lb, ub, cavg=None):
     """KKT residuals + gap, all relative, inf-norms, batched
-    (ops/pdhg.py:371-427 of the JAX package; PDLP convention)."""
+    (ops/pdhg.py:371-427 of the JAX package; PDLP convention).  cavg:
+    a consensus solve's averaging function, which replaces each nonant
+    slot's reduced cost by its node average so that the per-scenario
+    sums of the reduced-cost terms are the EF's."""
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     Ax = _Ax(A, x)
     pviol = torch.clamp(torch.maximum(row_lo - Ax, Ax - row_hi), min=0.0)
@@ -299,6 +347,8 @@ def _residuals(x, y, c, qdiag, A, row_lo, row_hi, lb, ub):
 
     grad = c + qdiag * x
     r = grad + _ATy(A, y)
+    if cavg is not None:
+        r = cavg(r)
     rpos = torch.clamp(r, min=0.0)
     rneg = torch.clamp(r, max=0.0)
     lb_fin = torch.isfinite(lb)
@@ -472,8 +522,6 @@ class PDHGSolver:
     # -- impl --------------------------------------------------------
     def _solve_impl(self, prep, c, qdiag, lb, ub, obj_const, x0, y0,
                     consensus=None, eps=None, iters_cap=None):
-        if consensus is not None:
-            raise not_ported("ConsensusSpec", 4)
         dc, dr = prep.d_col, prep.d_row
         # scale into solver space, in the caller's precision
         cs = c * dc
@@ -510,8 +558,6 @@ class PDHGSolver:
             eps_out = max(round_to_dtype(eps, out_dt), floor)
             eps = round_to_dtype(eps_out, cs.dtype)
 
-        anorm = prep.anorm.to(cs.dtype)
-        qmax = torch.amax(qs, dim=1)
         # the chunk kernel takes contiguous tensors
         A = A.contiguous()
         kin = [t.contiguous() for t in (cs, qs, lbs, ubs, rlo, rhi)]
@@ -519,16 +565,30 @@ class PDHGSolver:
         # compute dtype, cast up once per solve when it is stored lower
         # (jnp promotes bf16 x f32 operands to f32 in the JAX package)
         A_kkt = A if A.dtype == cs.dtype else _cast_A(A, cs.dtype)
-        form = operator_form(A, S)
-        optin = (smem_optin() if cs.device.type == "cuda"
-                 else H100_SMEM_OPTIN)
-        route = pick_route(form, A.shape[1], A.shape[2], A.dtype, optin)
+        if consensus is not None:
+            cons = _Consensus(consensus, cs)
+            csum, cavg = cons.csum, cons.cavg
+            anorm, qmax = cons.norm_and_qmax(A_kkt, qs)
+            xs0 = _proj_box(cavg(xs0), lbs, ubs)   # consistent warm start
+            route = "consensus"
+        else:
+            cons = csum = cavg = None
+            anorm = prep.anorm.to(cs.dtype)
+            qmax = torch.amax(qs, dim=1)
+            optin = (smem_optin() if cs.device.type == "cuda"
+                     else H100_SMEM_OPTIN)
+            route = pick_route(operator_form(A, S), A.shape[1],
+                               A.shape[2], A.dtype, optin)
 
         def steps(x, y, omega, n):
-            """n PDHG iterations, in one kernel launch or on the matmul
-            route: final iterates + running sums."""
+            """n PDHG iterations, in one kernel launch, on the matmul
+            route or on the consensus route: final iterates + running
+            sums."""
             sigma = 0.9 * omega / anorm
             tau = 0.9 / (omega * anorm + 0.9 * qmax)
+            if route == "consensus":
+                return consensus_chunk(A_kkt, *kin, x, y, tau, sigma, n,
+                                       csum)
             if route == "matmul":
                 return matmul_chunk(A_kkt, *kin, x, y, tau, sigma, n)
             return fused_chunk(A, *kin, x.contiguous(), y.contiguous(),
@@ -537,7 +597,15 @@ class PDHGSolver:
         def kkt_score(x, y, data=None):
             if data is None:
                 data = (cs, qs, A_kkt, rlo, rhi, lbs, ubs)
-            pres, dres, gap, _, _ = _residuals(x, y, *data)
+            pres, dres, gap, pobj, dobj = _residuals(x, y, *data,
+                                                     cavg=cavg)
+            if cons is not None:
+                # each EF copy is one problem: one verdict for its
+                # scenarios, the gap from its objective sums
+                pres, dres = cons.scen_max(pres), cons.scen_max(dres)
+                ps, ds = cons.scen_sum(pobj), cons.scen_sum(dobj)
+                gap = torch.abs(ps - ds) / (1.0 + torch.abs(ps)
+                                            + torch.abs(ds))
             return pres + dres + gap, pres, dres, gap
 
         ne = self.check_every
@@ -595,9 +663,14 @@ class PDHGSolver:
                 do_restart = cycle >= self.restart_every
             do_restart = do_restart & ~conv
 
-            # primal weight update (PDLP-style smoothing)
-            dx = torch.linalg.vector_norm(xr - x_last, dim=1)
-            dy = torch.linalg.vector_norm(yr - y_last, dim=1)
+            # primal weight update (PDLP-style smoothing); one omega
+            # per EF copy under consensus
+            if cons is not None:
+                dx = cons.copy_norm(xr - x_last)
+                dy = cons.copy_norm(yr - y_last)
+            else:
+                dx = torch.linalg.vector_norm(xr - x_last, dim=1)
+                dy = torch.linalg.vector_norm(yr - y_last, dim=1)
             ok = (dx > 1e-12) & (dy > 1e-12)
             ratio = torch.where(ok, dy / torch.clamp(dx, min=1e-12), 1.0)
             om_new = torch.where(
@@ -651,7 +724,7 @@ class PDHGSolver:
                             prep.row_hi / dr, prep.row_hi)
         dobj = _residuals(xu, yu, c, qdiag,
                           _cast_A(_unscale_A(prep.A, dr, dc), out_dt),
-                          rlo_u, rhi_u, lb, ub)[4]
+                          rlo_u, rhi_u, lb, ub, cavg=cavg)[4]
         return SolveResult(
             x=xu, y=yu, obj=pobj, dual_obj=dobj + obj_const,
             pres=pres, dres=dres, gap=gap,
@@ -673,12 +746,22 @@ def matmul_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n):
     kernel's plain version.  Returns (x, y, x_sum, y_sum)."""
     global matmul_chunks
     matmul_chunks += 1
+    return _torch_steps(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma,
+                        n)
+
+
+def _torch_steps(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n,
+                 csum=None):
+    """The body of `matmul_chunk` and `consensus_chunk`; csum, when
+    given, is applied to the primal gradient of every step."""
     t2 = tau[:, None]
     s2 = sigma[:, None]
     xs = torch.zeros_like(x)
     ys = torch.zeros_like(y)
     for _ in range(int(n)):
         grad = cs + qs * x + _ATy(A, y)
+        if csum is not None:
+            grad = csum(grad)
         xn = _proj_box(x - t2 * grad, lbs, ubs)
         xt = 2.0 * xn - x
         v = y + s2 * _Ax(A, xt)
@@ -687,6 +770,90 @@ def matmul_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n):
         xs = xs + xn
         ys = ys + yn
     return x, y, xs, ys
+
+
+class _Consensus:
+    """The consensus pieces of one solve (ops/pdhg.py:863-918 of the
+    JAX package): `csum` segment-sums the nonant slots over their node
+    members and broadcasts back (the adjoint of the shared-variable
+    broadcast), `cavg` divides that by the member count, and the
+    per-copy reductions map (S,) to each copy's sum or max, broadcast
+    back, with num_copies stacked EFs of S / num_copies scenarios."""
+
+    def __init__(self, spec, cs):
+        dev = cs.device
+        self.v0 = spec.v0
+        self.na = torch.as_tensor(spec.nonant_idx, device=dev).long()
+        _, self.segsum = node_segment_sum(
+            torch.as_tensor(spec.node_of, device=dev), spec.num_nodes)
+        self.counts = self.segsum(torch.ones_like(cs[:, self.na]))
+        # z-space norm weights: a shared coordinate counted once
+        self.wz = torch.ones_like(cs)
+        self.wz[:, self.na] = 1.0 / self.counts
+        self.nc = max(int(spec.num_copies or 1), 1)
+        self.S0 = cs.shape[0] // self.nc
+
+    def csum(self, g):
+        g = g.clone()
+        g[:, self.na] = self.segsum(g[:, self.na])
+        return g
+
+    def cavg(self, g):
+        g = self.csum(g)
+        g[:, self.na] = g[:, self.na] / self.counts
+        return g
+
+    def scen_sum(self, a):
+        """(S,) -> per-copy sum, broadcast back to (S,)."""
+        return torch.sum(a.reshape(self.nc, self.S0),
+                         dim=1).repeat_interleave(self.S0)
+
+    def scen_max(self, a):
+        return torch.amax(a.reshape(self.nc, self.S0),
+                          dim=1).repeat_interleave(self.S0)
+
+    def copy_norm(self, d):
+        """(S, n) -> the 2-norm of each copy's rows, broadcast (S,)."""
+        return torch.sqrt(self.scen_sum(torch.sum(d * d, dim=1)))
+
+    def znorm(self, g):
+        return torch.sqrt(self.scen_sum(
+            torch.sum(self.wz * g * g, dim=1))) + 1e-30
+
+    def norm_and_qmax(self, A, qs):
+        """(anorm, qmax), each (S,) and uniform per copy: ||.||_2 of the
+        EF operator blockdiag(A) B by 40 power steps in z-space, and the
+        largest summed quadratic coefficient."""
+        S, N = qs.shape
+        v = (normal_draw((S, N), qs.dtype, qs.device, 0) if self.v0 is None
+             else torch.as_tensor(self.v0, dtype=qs.dtype,
+                                  device=qs.device))
+        v = self.cavg(v)
+        for _ in range(40):
+            v = v / self.znorm(v)[:, None]
+            v = self.csum(_ATy(A, _Ax(A, v)))
+        av = _Ax(A, v / self.znorm(v)[:, None])
+        anorm = torch.sqrt(self.scen_sum(torch.sum(av * av, dim=1)))
+        qmax = self.scen_max(torch.amax(self.csum(qs), dim=1))
+        return torch.clamp(anorm, min=1.0).to(qs.dtype), qmax
+
+
+#: inner iteration chunks run on the consensus route in this process
+consensus_chunks = 0
+
+
+def consensus_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n,
+                    csum):
+    """n PDHG iterations of a consensus (EF) solve: `matmul_chunk`'s
+    body with the primal gradient segment-summed over node members
+    (`csum`) before each update (ops/pdhg.py:942-955 with csum
+    applied).  The sum couples the scenarios of a node, so no
+    per-scenario kernel block can take it.  Returns (x, y, x_sum,
+    y_sum)."""
+    global consensus_chunks
+    consensus_chunks += 1
+    return _torch_steps(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma,
+                        n, csum)
 
 
 def round_to_dtype(v, dtype):

@@ -10,8 +10,12 @@ over the scenario axis.
 a dense batch that declares its matrix-uncertainty coordinates
 (`model_meta["A_delta_idx"]`) gets the delta-split prep with one shared
 scaling unless `no_split_prep` is set; anything else gets the dense
-per-scenario prep.  `pdhg_sparse_threshold` turns a split prep's shared
-block sparse.
+per-scenario prep, with one column scaling for all scenarios where a
+subclass sets `_shared_cols` (the extensive form).
+`pdhg_sparse_threshold` turns a split prep's shared block sparse.
+
+`evaluate_candidates` screens k candidates in one solve over the xhat
+system tiled k-fold along the scenario axis.
 
 Differences from the JAX package, each on purpose:
 * `_certified_resolve` runs its float64 re-solve on the batch's own
@@ -34,6 +38,7 @@ import torch
 from . import global_toc
 from .ir import (SparseSplitA, SplitA, bmatvec, delta_idx, shared_density,
                  sparsify_split)
+from .ops import pdhg as _pdhg
 from .ops.pdhg import (HOT_DTYPES, PDHGSolver, _cast_A, _gather_prep,
                        prepare_batch, prepare_batch_split,
                        prepare_split_native, reprep_row_bounds,
@@ -43,6 +48,12 @@ from .utils import mfu as _mfu
 
 
 class SPOpt(SPBase):
+    # subclasses whose solves need one column scaling for every scenario
+    # (consensus / EF solves) set this, so the batch is prepared once
+    _shared_cols = False
+    # subclasses that index prep.A as a dense array opt out of the
+    # delta-split prep
+    _use_split_prep = True
 
     def __init__(self, *args, prep=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -97,12 +108,15 @@ class SPOpt(SPBase):
         if b.split_A:
             # born split-native: the split prep is the only prep
             prep = prepare_split_native(A, row_lo, row_hi)
-        elif (delta is not None and not b.shared_A
+        elif (delta is not None and self._use_split_prep
+                and not b.shared_A
                 and not self.options.get("no_split_prep")):
+            # one shared scaling: satisfies _shared_cols as well
             prep = prepare_batch_split(A, delta[0], delta[1], row_lo,
                                        row_hi)
         else:
-            prep = prepare_batch(A, row_lo, row_hi)
+            prep = prepare_batch(A, row_lo, row_hi,
+                                 shared_cols=self._shared_cols)
         if self.solver.sparse_threshold > 0.0 \
                 and isinstance(prep.A, SplitA):
             spA = sparsify_split(prep.A, self.solver.sparse_threshold)
@@ -247,7 +261,8 @@ class SPOpt(SPBase):
                                             row_hi.to(f64))
             else:
                 full = prepare_batch(A.to(f64), row_lo.to(f64),
-                                     row_hi.to(f64))
+                                     row_hi.to(f64),
+                                     shared_cols=self._shared_cols)
             self._np_cache[prep_key] = full
         # shared leaves (a shared A, a SplitA's shared block and its
         # scalings) serve every straggler as they are; row bounds may
@@ -324,8 +339,12 @@ class SPOpt(SPBase):
         return str(dt).replace("torch.", "")
 
     def pdhg_stats(self):
-        """Adaptive-work counters since the last reset."""
+        """Adaptive-work counters since the last reset, with the
+        process-wide chunk counts of the matmul and consensus routes
+        (`ops.pdhg.matmul_chunks`, `consensus_chunks`)."""
         return {
+            "matmul_chunks": int(_pdhg.matmul_chunks),
+            "consensus_chunks": int(_pdhg.consensus_chunks),
             "inner_iters": int(self._kernel_iters),
             "restarts_total": int(self._restarts_total),
             "active_fraction_final": float(self._active_fraction),
@@ -356,6 +375,9 @@ class SPOpt(SPBase):
         ok = res.pres < tol
         return float(torch.sum(torch.where(ok, self.batch.prob, 0.0)))
 
+    def infeas_prob(self, res, tol=None):
+        return 1.0 - self.feas_prob(res, tol)
+
     @property
     def is_lp(self):
         """True when every subproblem is an LP (no quadratic term)."""
@@ -373,6 +395,13 @@ class SPOpt(SPBase):
             return self.Ebound(res.dual_obj)
         return self.Ebound(res.dual_obj, converged=res.converged)
 
+    def check_W_bound_supported(self):
+        """W-based Lagrangian bounds are valid because the probability-
+        weighted W sums to zero per node.  Under variable_probability
+        that fails and the JAX package raises here; the port refuses
+        variable_probability at construction (ROADMAP queue A item 10),
+        so every batch it holds supports the bound."""
+
     @property
     def all_bounds_finite(self):
         hit = self._np_cache.get("_bounds_finite")
@@ -381,6 +410,14 @@ class SPOpt(SPBase):
                        and torch.all(torch.isfinite(self.batch.ub)))
             self._np_cache["_bounds_finite"] = hit
         return hit
+
+    def avg_min_max(self, vals):
+        """Prob>0-masked average, min and max of a per-scenario
+        quantity (reference spopt.py:469)."""
+        mask = (self.batch.prob > 0).cpu().numpy()
+        v = (vals.detach().cpu().numpy() if torch.is_tensor(vals)
+             else np.asarray(vals))[mask]
+        return float(np.mean(v)), float(np.min(v)), float(np.max(v))
 
     # -- xhat evaluation (reduced second-stage solve) ---------------------
     # The fixed nonant columns are ELIMINATED (row bounds -= A_na @ v,
@@ -478,10 +515,10 @@ class SPOpt(SPBase):
                 prep2, c_red, q_red, lb_red, ub_red, oc, x0, y0,
                 None, eps), (rlo, rhi, oc)
 
-        hit = {"pos": pos, "A_na": A_na, "A_red": A_red, "prep": prep,
-               "c_red": c_red,
+        hit = {"na": na, "pos": pos, "A_na": A_na, "A_red": A_red,
+               "prep": prep, "c_red": c_red,
                "q_red": q_red, "lb_red": lb_red, "ub_red": ub_red,
-               "impl": impl}
+               "impl": impl, "ftol": ftol}
         self._np_cache[key] = hit
         return hit
 
@@ -517,6 +554,120 @@ class SPOpt(SPBase):
         eobj = float(self.Eobjective(res.obj))
         self._solve_wall += time.time() - t0
         return eobj, feas
+
+
+    def evaluate_candidates(self, candidates, tol=None,
+                            warm="xhat_candidates", eps=None,
+                            iters_cap=None, return_mass=False):
+        """Evaluate k candidates (k, K) in one stacked solve: the
+        reduced xhat system tiled k-fold along the scenario axis
+        (spopt.py:876-1000 of the JAX package).  Returns (Eobjs (k,),
+        feas (k,)) as numpy arrays, and with return_mass each
+        candidate's feasible probability mass.
+
+        A screening pass: no f64 certify, feasibility by the primal
+        residual under `tol`.  eps / iters_cap loosen and cap this solve
+        alone (ranking callers such as uc.one_opt_commitment)."""
+        cands = np.asarray(candidates)
+        k, _ = cands.shape
+        b = self.batch
+        S_all = b.num_scens
+        cache = self._xhat_cache(None)
+        tkey = ("xhat_stack", k)
+        # one live stack only: each holds a k-fold tiling of the
+        # per-scenario arrays, so a stack for another k is dropped
+        for stale in [key for key in self._np_cache
+                      if isinstance(key, tuple) and key
+                      and key[0] == "xhat_stack" and key != tkey]:
+            del self._np_cache[stale]
+        stack = self._np_cache.get(tkey)
+        if stack is None:
+            def tile(a):
+                # shared leaves (leading dim 1) serve every candidate;
+                # a SplitA tiles its per-scenario values only
+                if isinstance(a, SplitA):
+                    return dataclasses.replace(a, vals=tile(a.vals))
+                if a.shape[0] == 1 and S_all > 1:
+                    return a
+                return a.repeat((k,) + (1,) * (a.dim() - 1))
+
+            prep = cache["prep"]
+            nai = torch.as_tensor(cache["na"], dtype=torch.long,
+                                  device=self.device)
+            stack = {
+                "A_na": tile(cache["A_na"]),
+                "c_na": tile(b.c[:, nai]), "q_na": tile(b.qdiag[:, nai]),
+                "c_red": tile(cache["c_red"]),
+                "q_red": tile(cache["q_red"]),
+                "lb_red": tile(cache["lb_red"]),
+                "ub_red": tile(cache["ub_red"]),
+                "row_lo": tile(b.row_lo), "row_hi": tile(b.row_hi),
+                "obj_const": tile(b.obj_const), "prob": tile(b.prob),
+                "prep": prep.map(tile)}
+            self._np_cache[tkey] = stack
+        t0 = time.time()
+        x0, y0 = self._named_warm.get(warm, (None, None))
+        if x0 is None or x0.shape[0] != k * S_all:
+            x0 = torch.zeros_like(stack["c_red"])
+            y0 = torch.zeros_like(stack["row_lo"])
+        eps = (self.solver_eps if eps is None
+               else round_to_dtype(eps, b.c.dtype))
+        vals2 = torch.as_tensor(cands, device=self.device).to(
+            b.c.dtype).repeat_interleave(S_all, dim=0)     # (k*S, K)
+        shift = bmatvec(stack["A_na"], vals2)
+        prep2, _, _ = self._shift_and_widen_rows(
+            stack["prep"], stack["row_lo"], stack["row_hi"], shift,
+            cache["ftol"])
+        # at UC's full width each (k*S, M) buffer is ~0.6 GB: free the
+        # temporaries before the solve allocates its own
+        del shift
+        oc = (stack["obj_const"]
+              + torch.sum(stack["c_na"] * vals2, dim=1)
+              + 0.5 * torch.sum(stack["q_na"] * vals2 * vals2, dim=1))
+        del vals2
+        res = self.solver._solve_impl(
+            prep2, stack["c_red"], stack["q_red"], stack["lb_red"],
+            stack["ub_red"], oc, x0, y0, None, eps, iters_cap)
+        del prep2
+        objs = torch.sum((stack["prob"] * res.obj).reshape(k, S_all),
+                         dim=1)
+        self._account(stack["prep"], int(res.iters), S=k * S_all)
+        self._named_warm[warm] = (res.x, res.y)
+        tol = tol or 10 * float(self.solver_eps)
+        ok = (res.pres < tol).reshape(k, S_all).cpu().numpy()
+        _sync(res.x)
+        self._solve_wall += time.time() - t0
+        prob = b.prob.cpu().numpy()
+        feas = np.all(ok | ~(prob > 0)[None, :], axis=1)
+        objs = objs.cpu().numpy()
+        if return_mass:
+            mass = (ok * prob[None, :]).sum(axis=1) / max(prob.sum(),
+                                                          1e-12)
+            return objs, feas, mass
+        return objs, feas
+
+    # -- nonant fixing (reference spopt.py:592-740 _fix_nonants) ----------
+    def fixed_nonant_bounds(self, values, upto_stage=None):
+        """(lb, ub) that pin the nonant slots to `values`: (K,) for all
+        scenarios alike, or (S, K) per scenario.  upto_stage: pin only
+        the slots whose stage is at most upto_stage (reference
+        xhat_eval.py:326 fix_nonants_upto_stage)."""
+        b = self.batch
+        na = b.nonant_idx
+        vals = torch.as_tensor(values, device=self.device).to(b.lb.dtype)
+        if vals.dim() == 1:
+            vals = vals[None, :].expand(b.num_scens, b.num_nonants)
+        if upto_stage is not None:
+            keep = torch.as_tensor(np.asarray(b.tree.stage_of)
+                                   <= upto_stage, device=self.device)
+            lo = torch.where(keep[None, :], vals, b.lb[:, na])
+            hi = torch.where(keep[None, :], vals, b.ub[:, na])
+        else:
+            lo = hi = vals
+        lb, ub = b.lb.clone(), b.ub.clone()
+        lb[:, na] = lo
+        ub[:, na] = hi
+        return lb, ub
 
 
 def _sync(t):

@@ -287,3 +287,70 @@ def test_single_straggler_on_a_shared_A_beyond_the_tile(cuda):
         g, w = getattr(got, f).cpu(), getattr(ref, f)
         assert float((g - w).abs().max()) <= 1e-9 * max(
             1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_shared_form_at_the_uc_fallback_shape(cuda, dtype):
+    """UC at bench.py's fallback size (fleet_multiplier=2, H=6) is one
+    shared (1, 174, 114) matrix: the looping tile with A staged in
+    shared memory, against its plain version and the dense kernel."""
+    from mpisppy_tpu_torch.models import uc
+    S = 250
+    b = uc.build_batch(S, H=6, fleet_multiplier=2, device="cpu")
+    assert tuple(b.A.shape) == (1, 174, 114)
+    v = pick_variant(174, 114, dtype)
+    assert v.source == "shared"
+    args = _instance(S, 174, 114, 12, dtype, cuda)
+    A = prepare_batch(b.A, b.row_lo, b.row_hi).A.to(cuda, dtype)
+    before = pdhg_chunk.launch_shapes[("shared", S, 174, 114,
+                                       str(dtype).replace("torch.", ""))]
+    got = fused_chunk(A, *args[1:], 40)
+    torch.cuda.synchronize()
+    assert pdhg_chunk.launch_shapes[(
+        "shared", S, 174, 114, str(dtype).replace("torch.", ""))] \
+        == before + 1
+    _assert_matches(got, pdhg_chunk.fused_chunk_shared_reference(
+        A, *args[1:], 40), dtype)
+    dense = fused_chunk(A.expand(S, -1, -1).contiguous(), *args[1:], 40)
+    for g, w in zip(got, dense):
+        assert torch.equal(g, w)
+
+
+def test_consensus_solve_on_card_matches_cpu(cuda):
+    """An EF (consensus) solve of SIPLIB sslp_5_25 at S=5 in float64 on
+    the card against the same solve on the CPU: the same decisions and
+    iterates within 1e-9 (the segment sums use atomics on the card, so
+    not bit for bit).  It runs on the consensus route: no launch of the
+    chunk kernel, no matmul-route chunk."""
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
+    import dataclasses
+    opts = {"pdhg_eps": 1e-6, "pdhg_max_iters": 200000}
+    names = sslp.scenario_names_creator(5)
+    ref = ExtensiveForm(opts, names, device="cpu", batch=sslp.build_batch(
+        5, instance="sslp_5_25", device="cpu"))
+    ef = ExtensiveForm(opts, names, device=cuda, prep=ref.prep,
+                       batch=sslp.build_batch(5, instance="sslp_5_25",
+                                              device="cpu"))
+    # one start vector for the EF's power iteration on both devices (the
+    # CPU and CUDA generators draw different numbers)
+    v0 = np.random.default_rng(13).standard_normal(
+        tuple(ref.batch.c.shape))
+    for e in (ref, ef):
+        e.consensus = dataclasses.replace(e.consensus, v0=v0)
+    cpu = ref.solve_extensive_form()
+    k0, m0, c0 = (pdhg_chunk.launches, pdhg.matmul_chunks,
+                  pdhg.consensus_chunks)
+    got = ef.solve_extensive_form()
+    torch.cuda.synchronize()
+    assert pdhg_chunk.launches == k0 and pdhg.matmul_chunks == m0
+    assert pdhg.consensus_chunks - c0 == got.iters // 40 > 0
+    assert got.iters == cpu.iters
+    assert torch.equal(got.converged.cpu(), cpu.converged)
+    for f in ("x", "y", "obj", "dual_obj"):
+        g, w = getattr(got, f).cpu(), getattr(cpu, f)
+        assert float((g - w).abs().max()) <= 1e-9 * max(
+            1.0, float(w.abs().max()))
+    assert abs(ef.get_objective_value() - ref.get_objective_value()) \
+        <= 1e-9 * abs(ref.get_objective_value())
