@@ -47,15 +47,30 @@ Phases, one JSON line each (any failure exits non-zero):
               threshold commitments screened in one stacked solve,
               screened 1-opt sweeps, the consensus-EF dual bound (no
               kernel launch); walls per step, chunk counts, peak
-              memory, inner, outer and gap.  Then the fallback size
+              memory, inner, outer and gap, and one consensus-route
+              chunk timed alone against its bound.  Then the fallback size
               (6 units, 6 h, S=250): Iter0 and 2 PH iterations must
               launch the kernel's shared form at (1, 174, 114)
   9. sslp     bench.py's sslp50 row: SIPLIB sslp_5_25 at S=50, f32, one
               consensus EF solve and its f64 certify to a gap under 1%,
-              the objective within 1e-4 of HiGHS on the same EF LP
+              the objective within 1e-4 of HiGHS on the same EF LP;
+              one consensus-route chunk timed alone against its bound
  10. golden   farmer-3 in f64 through ph_main: E[obj] = -108390 +- 20,
               xbar ~ (170, 80, 250)
-Then the kernels line, the nvidia-smi line, and the result line.
+ 11. wheel    the hub-and-spoke wheel (PH hub, Lagrangian and
+              XhatShuffle spokes).  `wheel_row`: bench.py's wheel_mpmd
+              row on one device (farmer S=100, f32, threads mode over
+              the host seqlock, rel_gap 1e-4, 40 PH iterations); its
+              bounds must bracket the farmer-100 optimum (the port's
+              ExtensiveForm in f64 on the card).  `wheel_split`: farmer
+              S=1000, cm=10, f32 built through the port's config and
+              vanilla (examples/farmer_cylinders.py's command line),
+              interleaved, the split phase's options with 20 PH
+              iterations; the kernel's split and shared forms must both
+              launch.  Supersteps, steps per spoke, bounds, gap, launches
+              by form and dtype, f64 certifies, bound rejects, memory.
+Then the kernels line (each entry with its launches in `wheel_split`),
+the nvidia-smi line, and the result line.
 
 Imports nothing of jax and nothing of the JAX package (scipy only for
 the HiGHS reference of the sslp phase).  Exits non-zero,
@@ -125,6 +140,21 @@ UC_FALLBACK_S = 250
 # instance's LP relaxation as one consensus EF solve, f32
 SSLP_S = 50
 SSLP_OPTS = {"pdhg_eps": 1e-5, "pdhg_max_iters": 200000}
+# bench.py's wheel_mpmd row on one device (bench.py:1083-1124): farmer
+# S=100 at crops_multiplier=1, a PH hub, a Lagrangian and an
+# XhatShuffle spoke, threads mode over the host seqlock, to a certified
+# rel_gap of 1e-4 within 40 PH iterations.  The row's options without
+# its "telemetry": True (not ported, ROADMAP queue A item 8).
+WHEEL_S = 100
+WHEEL_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 40, "convthresh": 0.0,
+              "pdhg_eps": 1e-7, "pdhg_max_iters": 30000}
+WHEEL_HUB_OPTS = {"rel_gap": 1e-4, "abs_gap": 1.0}
+# the heavier wheel through config + vanilla, as
+# examples/farmer_cylinders.py builds it, with the split phase's solver
+# options and PHIterLimit cut to 20
+WHEEL_SPLIT_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
+                    "--lagrangian", "--xhatshuffle", "--rel-gap", "0.01"]
+WHEEL_SPLIT_PH_ITERS = 20
 
 # H100 rates used for the bound (NVIDIA data sheets, dense, no sparsity):
 # (memory bytes/s, FP32 non-tensor FLOP/s, FP64 non-tensor FLOP/s)
@@ -950,7 +980,7 @@ def uc_phase():
 
     from mpisppy_tpu_torch.models import uc
     from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
-    from mpisppy_tpu_torch.opt.ef import ef_dual_bound
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm, ef_dual_bound
     from mpisppy_tpu_torch.opt.ph import PH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1056,6 +1086,10 @@ def uc_phase():
            "kernel_launches_in_consensus_solves": 0,
            "max_memory_allocated": peak_mem,
            "pdhg_stats": ph.pdhg_stats(), "solve_stats": ph.solve_stats()}
+    # one consensus-route chunk alone at this shape (after the counts
+    # above were read)
+    out["consensus_route"] = consensus_step_timing(
+        ExtensiveForm({"pdhg_eps": 1e-5}, names, batch=b), b)
     emit(out)
     return out
 
@@ -1168,6 +1202,9 @@ def sslp_phase():
     check(rel <= 1e-4, f"sslp EF objective {obj} is {rel:.2e} from the "
           f"HiGHS optimum {lp}")
     x_na = b.nonants(res.x)
+    counts = (pdhg.consensus_chunks, pdhg.matmul_chunks,
+              pdhg_chunk.launches)
+    route = consensus_step_timing(ef, b)
     out = {"phase": "sslp", "S": SSLP_S, "instance": "sslp_5_25",
            "dtype": "float32", "options": SSLP_OPTS, "wall_s": wall,
            "objective": obj, "dual_bound": dual, "gap": gap,
@@ -1176,12 +1213,265 @@ def sslp_phase():
            "nonant_spread": float((x_na - x_na[0]).abs().max()),
            "highs_objective": lp, "rel_to_highs": rel,
            "highs_ef_vars": n_vars, "highs_s": oracle_s,
-           "consensus_chunks": pdhg.consensus_chunks,
-           "matmul_chunks": pdhg.matmul_chunks,
-           "kernel_launches": pdhg_chunk.launches,
+           "consensus_chunks": counts[0], "matmul_chunks": counts[1],
+           "kernel_launches": counts[2], "consensus_route": route,
            "solve_stats": ef.solve_stats()}
     emit(out)
     return out
+
+
+def consensus_step_timing(ef, b):
+    """One consensus-route chunk (`ops/pdhg.py::consensus_chunk`, torch
+    ops) alone, on the solver-space data of the EF's prep: ms a step
+    against the bound of the same work (A once, the vectors in and out,
+    40 steps of two matvecs and the elementwise updates at the FP32
+    peak).  Not a kernel: no single PyTorch call computes it either."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg
+    _, (bw, f32_peak, _) = peaks(torch.cuda.get_device_name(0))
+    p, prob = ef.prep, b.prob[:, None]
+    dc = p.d_col
+    vec = [b.c * prob * dc, b.qdiag * prob * dc * dc,
+           torch.where(torch.isfinite(b.lb), b.lb / dc, b.lb),
+           torch.where(torch.isfinite(b.ub), b.ub / dc, b.ub),
+           p.row_lo, p.row_hi]
+    cons = pdhg._Consensus(ef.consensus, vec[0])
+    anorm, qmax = cons.norm_and_qmax(p.A, vec[1])
+    x, y = torch.zeros_like(b.c), torch.zeros_like(p.row_lo)
+    tau, sigma = 0.9 / (anorm + 0.9 * qmax), 0.9 / anorm
+    chunk_ms = time_ms(lambda: pdhg.consensus_chunk(
+        p.A, *vec, x, y, tau, sigma, N_STEPS, cons.csum), reps=3, batch=5,
+        warmup=1)
+    S_, (_, M, N) = vec[0].shape[0], p.A.shape
+    nbytes = chunk_bytes(p.A, vec + [x, y, tau, sigma])
+    flops = N_STEPS * S_ * (4 * M * N + 10 * N + 8 * M)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    bound = max(t_bytes, t_ops)
+    return {"S": S_, "M": M, "N": N, "A_shape": list(p.A.shape),
+            "dtype": str(p.A.dtype).replace("torch.", ""),
+            "chunk_ms": chunk_ms, "step_ms": chunk_ms / N_STEPS,
+            "chunk_bound_ms": bound, "step_bound_ms": bound / N_STEPS,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / chunk_ms, "library_ms": None}
+
+
+def _counting(cls):
+    """`cls` counting its steps that did work (for the xhat spoke: an
+    evaluation, on fresh or on stale nonants), those of them that read
+    fresh hub data (the spoke's last_hub_id advanced), and their wall
+    (the threads run them concurrently)."""
+    class Counting(cls):
+        steps_done = 0
+        fresh_steps = 0
+        step_s = 0.0
+
+        def step(self):
+            t = time.time()
+            seen = self.last_hub_id
+            did = super().step()
+            if did:
+                self.steps_done += 1
+                self.fresh_steps += int(self.last_hub_id > seen)
+                self.step_s += time.time() - t
+            return did
+
+    Counting.__name__ = cls.__name__
+    return Counting
+
+
+def spin_wheel(hub_dict, spoke_dicts, mode):
+    """Spin one wheel with the counts zeroed just before; what it did:
+    bounds, supersteps, steps per spoke, launches by form and dtype,
+    float64 certify re-solves, rejects, peak memory."""
+    import threading
+
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.spopt import SPOpt
+    for d in spoke_dicts:
+        d["spoke_class"] = _counting(d["spoke_class"])
+    certifies, lock = [0], threading.Lock()
+    resolve = SPOpt._certified_resolve
+
+    def counted_resolve(self, res, *a, **kw):
+        out = resolve(self, res, *a, **kw)
+        if out is not res:             # stragglers were re-solved
+            with lock:
+                certifies[0] += 1
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak counts it too
+    mem0 = torch.cuda.memory_allocated()
+    SPOpt._certified_resolve = counted_resolve
+    try:
+        reset_counts()                 # count this wheel's run only
+        t0 = time.time()
+        ws = WheelSpinner(hub_dict, spoke_dicts, mode=mode).spin()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        SPOpt._certified_resolve = resolve
+    hub = ws.spcomm
+    alive = [t.name for t in threading.enumerate()
+             if "guarded_main" in t.name]
+    check(not alive, f"spoke threads still alive after the spin: {alive}")
+    check(hub.failed_spokes == [], f"spokes failed: {hub.failed_spokes}")
+    check(hub.finalize_failures == [],
+          f"spoke final passes failed: {hub.finalize_failures}")
+    outer, inner = float(ws.BestOuterBound), float(ws.BestInnerBound)
+    check(np.isfinite(outer) and np.isfinite(inner),
+          f"wheel bounds not finite: outer {outer}, inner {inner}")
+    check(outer <= inner, f"wheel outer bound {outer} above inner {inner}")
+    for sp in hub.spokes:
+        for f, v in vars(sp.opt.batch).items():
+            if torch.is_tensor(v):
+                check(v.device.type == "cuda",
+                      f"{type(sp).__name__} batch.{f} is on {v.device}")
+    supersteps = hub.current_iteration()
+    gap = abs(inner - outer) / max(1.0, abs(inner))   # bench.py:1155
+    rel_gap = hub.options["rel_gap"]
+    return ws, {
+        "mode": mode, "exchange_backend": ws.exchange_backend_used,
+        "wall_s": wall, "certified": gap <= rel_gap,
+        "value": wall if gap <= rel_gap else -1,
+        "supersteps": supersteps, "s_per_superstep": wall / supersteps,
+        "steps_per_spoke": {type(sp).__name__: sp.steps_done
+                            for sp in hub.spokes},
+        "fresh_steps_per_spoke": {type(sp).__name__: sp.fresh_steps
+                                  for sp in hub.spokes},
+        "spoke_step_s": {type(sp).__name__: sp.step_s
+                         for sp in hub.spokes},
+        "best_outer": outer, "best_inner": inner, "rel_gap": gap,
+        "rel_gap_target": rel_gap,
+        "bound_rejects": {type(sp).__name__: int(n) for sp, n in
+                          zip(hub.spokes, hub.bound_rejects)},
+        "corrupt_reads": int(hub.corrupt_reads.sum()),
+        "launches_by_form_dtype": pdhg_chunk.launches_by("form/dtype"),
+        "launches_by_form": pdhg_chunk.launches_by("form"),
+        "launch_shapes": launch_table(),
+        "matmul_chunks": pdhg.matmul_chunks,
+        "consensus_chunks": pdhg.consensus_chunks,
+        "f64_certifies": certifies[0],
+        "certify_s": {name: o._certify_wall for name, o in
+                      [("hub", hub.opt)] + [(type(sp).__name__, sp.opt)
+                                            for sp in hub.spokes]},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start": mem0,
+        "peak_memory_of_the_wheel":
+            torch.cuda.max_memory_allocated() - mem0}
+
+
+def wheel_phase():
+    """The hub-and-spoke wheel on the card, two runs.
+
+    (a) `wheel_row`: bench.py's wheel_mpmd protocol on one device,
+        threads mode over the host seqlock: farmer S=100, cm=1, f32, PH
+        hub + Lagrangian + XhatShuffle.  Its bounds must bracket the
+        farmer-100 optimum, computed on the card by the port's
+        ExtensiveForm in f64 (and by HiGHS on the host as a check).
+    (b) `wheel_split`: farmer S=1000, cm=10, f32 built through the
+        port's config and vanilla as examples/farmer_cylinders.py does,
+        interleaved, with the split phase's options: the split and
+        shared forms of the kernel must both launch during the spin."""
+    import torch
+
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.cylinders.lagrangian_bounder import (
+        LagrangianOuterBound)
+    from mpisppy_tpu_torch.cylinders.xhatshufflelooper_bounder import (
+        XhatShuffleInnerBound)
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.utils import config, vanilla
+    from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
+
+    # (a) the bench's row
+    names = farmer.scenario_names_creator(WHEEL_S)
+    batch = farmer.build_batch(WHEEL_S, dtype=np.float32)
+    hub_dict = {"hub_class": PHHub,
+                "hub_kwargs": {"options": dict(WHEEL_HUB_OPTS)},
+                "opt_class": PH,
+                "opt_kwargs": {"options": dict(WHEEL_OPTS),
+                               "all_scenario_names": names,
+                               "batch": batch}}
+    spoke_dicts = [
+        {"spoke_class": LagrangianOuterBound,
+         "spoke_kwargs": {"options": {}}, "opt_class": PH,
+         "opt_kwargs": {"options": dict(WHEEL_OPTS),
+                        "all_scenario_names": names}},
+        {"spoke_class": XhatShuffleInnerBound,
+         "spoke_kwargs": {"options": {}}, "opt_class": Xhat_Eval,
+         "opt_kwargs": {"options": dict(WHEEL_OPTS),
+                        "all_scenario_names": names}}]
+    ws, row = spin_wheel(hub_dict, spoke_dicts, "threads")
+    t = time.time()
+    ef = ExtensiveForm({"pdhg_eps": 1e-7, "pdhg_max_iters": 400000},
+                       names, batch=farmer.build_batch(WHEEL_S))
+    ef_res = ef.solve_extensive_form()
+    torch.cuda.synchronize()
+    ef_s = time.time() - t
+    opt = ef.get_objective_value()
+    highs, _ = ef_lp_oracle(farmer.build_batch(WHEEL_S))
+    tol = 1e-5 * abs(opt)
+    check(abs(opt - highs) <= 1e-6 * abs(highs),
+          f"farmer-{WHEEL_S} EF {opt} is off the HiGHS optimum {highs}")
+    check(row["best_outer"] <= opt + tol and row["best_inner"] >= opt - tol,
+          f"wheel bounds [{row['best_outer']}, {row['best_inner']}] do "
+          f"not bracket the farmer-{WHEEL_S} optimum {opt}")
+    out_a = {"phase": "wheel_row", "S": WHEEL_S, "crops_multiplier": 1,
+             "dtype": "float32", "options": WHEEL_OPTS,
+             "hub_options": WHEEL_HUB_OPTS,
+             "cuts": {"telemetry": {"bench": True, "here": False,
+                                    "why": "not ported (ROADMAP queue A "
+                                           "item 8)"}},
+             **row, "ef_optimum_f64": opt, "ef_s": ef_s,
+             "ef_iters": int(ef_res.iters),
+             "ef_converged": bool(ef_res.converged.all()),
+             "highs_optimum": highs,
+             "bracket_tol_rel": 1e-5}
+    emit(out_a)
+    del ws, ef
+
+    # (b) through config and vanilla, split prep
+    cfg = config.Config()
+    for group in ("popular_args", "ph_args", "two_sided_args",
+                  "lagrangian_args", "xhatshuffle_args"):
+        getattr(cfg, group)()
+    farmer.inparser_adder(cfg)
+    cfg.parse_command_line("farmer_cylinders", args=WHEEL_SPLIT_ARGV)
+    names = farmer.scenario_names_creator(cfg.num_scens)
+    batch = farmer.batch_creator(
+        dict(farmer.kw_creator(cfg), dtype=np.float32), cfg.num_scens)
+    hub_dict = vanilla.ph_hub(cfg, farmer.scenario_creator, None, names,
+                              batch=batch)
+    spoke_dicts = vanilla.build_spokes(cfg, farmer.scenario_creator, None,
+                                       names, batch=batch)
+    for d in [hub_dict] + spoke_dicts:
+        d["opt_kwargs"]["options"].update(
+            SPLIT_OPTS, PHIterLimit=WHEEL_SPLIT_PH_ITERS)
+    ws, row = spin_wheel(hub_dict, spoke_dicts, "interleaved")
+    by_form = row["launches_by_form"]
+    check(by_form.get("split", 0) > 0, "the split form never launched in "
+          "the wheel")
+    check(by_form.get("shared", 0) > 0, "the shared form never launched "
+          "in the wheel")
+    check(row["matmul_chunks"] == 0, f"{row['matmul_chunks']} chunks took "
+          "the matmul route at cm=10")
+    out_b = {"phase": "wheel_split", "S": cfg.num_scens,
+             "crops_multiplier": cfg.crops_multiplier, "dtype": "float32",
+             "argv": WHEEL_SPLIT_ARGV,
+             "options": dict(SPLIT_OPTS, PHIterLimit=WHEEL_SPLIT_PH_ITERS),
+             "cuts": {"PHIterLimit": {"command line": cfg.max_iterations,
+                                      "here": WHEEL_SPLIT_PH_ITERS}},
+             **row}
+    emit(out_b)
+    return out_a, out_b
 
 
 def golden_phase():
@@ -1250,7 +1540,10 @@ def main():
     emit({"phase": "sslp_done", "s": time.time() - t})
     t = time.time()
     golden_phase()
-    emit({"phase": "golden_done", "s": time.time() - t,
+    emit({"phase": "golden_done", "s": time.time() - t})
+    t = time.time()
+    _, wsplit = wheel_phase()
+    emit({"phase": "wheel_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1294,6 +1587,13 @@ def main():
                 for d in ("float32", "float64", "bfloat16")}
         else:
             entry["bf16"]["launches"] = launched[form][1]
+        # its launches in the wheel_split run, read from that run's
+        # counts (for shared_uc: the shared form at UC's M=174, N=114)
+        entry["launches_wheel"] = (
+            sum(r["launches"] for r in wsplit["launch_shapes"]
+                if r["form"] == "shared" and (r["M"], r["N"]) == (174, 114))
+            if form == "shared_uc"
+            else wsplit["launches_by_form"].get(form, 0))
         check(entry["launches"] > 0, f"the {form} form launched no time "
               f"on its path")
         kernels.append(entry)

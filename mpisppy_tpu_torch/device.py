@@ -9,7 +9,15 @@ pass `device="cpu"` explicitly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def host(t):
+    """A tensor (on any device) or an array-like as a numpy array."""
+    if torch.is_tensor(t):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
 
 
 def _pin_full_fp32():

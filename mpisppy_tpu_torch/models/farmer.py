@@ -17,8 +17,13 @@ A is stored dense (S, M, N), or split-native (`ir.SplitA`: one shared
 1 GB: the true-size instance (S=1000, crops_multiplier=1000) is ~288 GB
 dense in f32 and exists only split-native.
 
+The driver functions of `examples/farmer_cylinders.py`
+(`scenario_names_creator`, `inparser_adder`, `kw_creator`,
+`batch_creator`, `scenario_denouement`) are the JAX package's.
+
 Not ported yet (ROADMAP queue A): `scenario_source`, `export_corpus`
-and the `scenario_creator` modelling path.
+(item 12) and the `scenario_creator` modelling path (item 9:
+`scenario_creator` raises).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import not_ported
 from ..device import resolve_device
 from ..ir import ScenarioBatch, SplitA, TreeInfo
 
@@ -192,3 +198,51 @@ def build_batch(num_scens, crops_multiplier=1, use_integer=False,
                           use_integer=use_integer, seedoffset=seedoffset,
                           sense=sense, dtype=dtype, split=split,
                           device=device)
+
+
+def scenario_creator(scenario_name, use_integer=False, sense=1,
+                     crops_multiplier=1, num_scens=None, seedoffset=0):
+    """The single-scenario LinearModel path of the JAX package; the
+    port builds batches with `build_batch` only."""
+    raise not_ported("farmer.scenario_creator (the LinearModel path)", 9)
+
+
+# ---- driver helpers (the reference's farmer.py:237-268) -----------------
+
+def scenario_names_creator(num_scens, start=None):
+    start = start or 0
+    return [f"scen{i}" for i in range(start, start + num_scens)]
+
+
+def kw_creator(options):
+    return {
+        # the flag is farmer_with_integers (inparser_adder); callers
+        # may pass use_integer directly
+        "use_integer": options.get(
+            "use_integer", options.get("farmer_with_integers", False)),
+        "crops_multiplier": options.get("crops_multiplier", 1),
+        "num_scens": options.get("num_scens", None),
+    }
+
+
+def inparser_adder(cfg):
+    cfg.num_scens_required()
+    cfg.add_to_config("crops_multiplier",
+                      description="number of crops is 3x this", domain=int,
+                      default=1)
+    cfg.add_to_config("farmer_with_integers",
+                      description="integer acreage variant", domain=bool,
+                      default=False)
+
+
+def batch_creator(cfg_or_kwargs, num_scens=None):
+    """The full ScenarioBatch from keyword options (`build_batch`'s,
+    `device` included)."""
+    kw = dict(cfg_or_kwargs)
+    n = num_scens or kw.pop("num_scens", None)
+    kw.pop("num_scens", None)
+    return build_batch(n, **kw)
+
+
+def scenario_denouement(rank, scenario_name, result):
+    pass

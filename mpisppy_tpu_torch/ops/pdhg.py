@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any
 
 import numpy as np
@@ -735,6 +736,8 @@ class PDHGSolver:
 
 #: inner iteration chunks run on the matmul route in this process
 matmul_chunks = 0
+# the route counters are bumped from the wheel's spoke threads too
+_COUNT_LOCK = threading.Lock()
 
 
 def matmul_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n):
@@ -745,7 +748,8 @@ def matmul_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n):
     the route of operators too large for the chunk kernel's tile, not a
     kernel's plain version.  Returns (x, y, x_sum, y_sum)."""
     global matmul_chunks
-    matmul_chunks += 1
+    with _COUNT_LOCK:
+        matmul_chunks += 1
     return _torch_steps(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma,
                         n)
 
@@ -851,7 +855,8 @@ def consensus_chunk(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma, n,
     per-scenario kernel block can take it.  Returns (x, y, x_sum,
     y_sum)."""
     global consensus_chunks
-    consensus_chunks += 1
+    with _COUNT_LOCK:
+        consensus_chunks += 1
     return _torch_steps(A, cs, qs, lbs, ubs, rlo, rhi, x, y, tau, sigma,
                         n, csum)
 

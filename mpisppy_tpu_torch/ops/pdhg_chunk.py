@@ -41,7 +41,8 @@ them.
 `launches` counts kernel launches (never plain-version calls) and
 `launch_shapes` the same by (form, S, M, N, dtype of A), so a run can
 show that its solves went through the kernel, in which forms and with
-which shapes (`launches_by` sums them by form or dtype).
+which shapes (`launches_by` sums them by form or dtype).  Both are
+bumped under a lock: the wheel's spoke threads launch concurrently.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ from ..ir import SparseSplitA, SplitA
 launches = 0
 #: the same launches by (form, S, M, N, dtype name of A)
 launch_shapes = collections.Counter()
+# the wheel's threads mode launches from several host threads at once;
+# a bare `+= 1` can lose counts there
+_COUNT_LOCK = threading.Lock()
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "pdhg_chunk.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -471,6 +475,8 @@ def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
             f"pdhg_chunk kernel launch failed: CUDA error {rc} "
             f"({form}, S={S}, M={M}, N={N}, dtype={A.dtype}, {v})")
     global launches
-    launches += 1
-    launch_shapes[(form, S, M, N, str(A.dtype).replace("torch.", ""))] += 1
+    with _COUNT_LOCK:
+        launches += 1
+        launch_shapes[(form, S, M, N,
+                       str(A.dtype).replace("torch.", ""))] += 1
     return xo, yo, xso, yso

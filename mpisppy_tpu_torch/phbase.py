@@ -12,11 +12,14 @@ The JAX package jits the superstep; here it is a plain function of
 tensors, and the PDHG solve inside it runs its inner iterations in the
 CUDA chunk kernel.
 
+When a hub (`cylinders/hub.py`) drives the loop, `iterk_loop` calls
+its `sync()` after every iteration and stops when `is_converged()`.
+
 Not ported yet (ROADMAP queue A): run checkpoints (`run_checkpoint`,
 `resume_from`), chaos injection, telemetry and phase timing,
-`ph_converger`, hub/spoke communicators, `reshard` and
-`variable_probability`.  Options that would select them raise
-NotImplementedError (spbase._UNPORTED_OPTIONS).
+`ph_converger`, `reshard` and `variable_probability`.  Options that
+would select them raise NotImplementedError
+(spbase._UNPORTED_OPTIONS).
 """
 
 from __future__ import annotations
@@ -150,6 +153,7 @@ class PHBase(SPOpt):
             variable_probability=variable_probability,
             batch=batch, device=device, prep=prep)
         self.rho_setter = rho_setter
+        self.spcomm = None   # set by cylinders.hub when running as a hub
         self.extobject = None
         if extensions is not None:
             self.extobject = extensions(self, **(extension_kwargs or {}))
@@ -326,6 +330,11 @@ class PHBase(SPOpt):
                 global_toc(f"PH iter {k:4d} conv={conv:.6e} "
                            f"E[obj]={eobj:.6g}")
             self._ext("enditer")
+            if self.spcomm is not None:
+                self.spcomm.sync()
+                if self.spcomm.is_converged():
+                    global_toc(f"PH terminated by hub at iter {k}")
+                    break
             if conv < convthresh:
                 global_toc(f"PH converged (conv={conv:.3e} < "
                            f"{convthresh}) at iter {k}")

@@ -6,16 +6,18 @@ checks that the scenario probabilities sum to one.  There is no mesh:
 the port runs on one device.
 
 Not ported yet (ROADMAP queue A): the `scenario_creator` path (it needs
-`stack_scenarios`), `variable_probability`, multi-device sharding and
-the solution writers.
+`stack_scenarios`), `variable_probability` and multi-device sharding.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+
 import torch
 
 from . import global_toc, not_ported
-from .device import resolve_device
+from .device import host, resolve_device
 from .ir import ScenarioBatch
 
 # options whose machinery this slice does not carry, with the ROADMAP.md
@@ -61,3 +63,28 @@ class SPBase:
             raise RuntimeError(
                 f"scenario probabilities sum to {tot}, not 1 "
                 "(reference hard-quits here too, spbase.py:470)")
+
+    # -- solution writers (spbase.py:618-651 of the JAX package) ----------
+    def write_first_stage_solution(self, path, xbar_root):
+        """CSV of the root-node consensus values, one `name,value` row
+        per nonant."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        names = self.batch.tree.nonant_names
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            for name, v in zip(names, host(xbar_root).tolist()):
+                w.writerow([name, v])
+        global_toc(f"Wrote first-stage solution to {path}")
+
+    def write_tree_solution(self, directory, x):
+        """One CSV of all variables per scenario."""
+        os.makedirs(directory, exist_ok=True)
+        xa = host(x)[: self.n_real_scens]
+        for si, sname in enumerate(self.all_scenario_names):
+            with open(os.path.join(directory, f"{sname}.csv"), "w",
+                      newline="") as f:
+                w = csv.writer(f)
+                for vi, vname in enumerate(self.batch.var_names
+                                           or range(xa.shape[1])):
+                    w.writerow([vname, float(xa[si, vi])])
+        global_toc(f"Wrote tree solution to {directory}/")

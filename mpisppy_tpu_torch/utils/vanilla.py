@@ -1,0 +1,265 @@
+"""vanilla — hub and spoke dict factories from a Config (port of
+`mpisppy_tpu/utils/vanilla.py`, the counterpart of the reference's
+cfg_vanilla.py).
+
+Each factory returns the dict schema WheelSpinner consumes, with the
+reference's signature (cfg, scenario_creator, scenario_denouement,
+all_scenario_names, ...) plus `batch=`, a prebuilt ScenarioBatch.  The
+port needs `batch=` (the `scenario_creator` path is ROADMAP.md queue A
+item 9); on the CPU put `device="cpu"` into the returned dicts'
+`opt_kwargs` (the hub's device is the spokes' default).
+
+Not ported yet, each raising where selected: `aph_hub`,
+`lshaped_hub`, `fwph_spoke`, `xhatlshaped_spoke` (item 10); the
+extension adders `add_fixer`, `add_norm_rho`, `add_multi_rho`,
+`add_wtracker` and `extension_adder` (item 7); per-cylinder
+`{root}_solver_*` options (item 5, `utils/solver_spec.py`).
+"""
+
+from __future__ import annotations
+
+import json
+
+from .. import not_ported
+from ..cylinders.hub import PHHub
+from ..cylinders.lagranger_bounder import LagrangerOuterBound
+from ..cylinders.lagrangian_bounder import LagrangianOuterBound
+from ..cylinders.slam_heuristic import SlamMaxHeuristic, SlamMinHeuristic
+from ..cylinders.xhatlooper_bounder import XhatLooperInnerBound
+from ..cylinders.xhatshufflelooper_bounder import XhatShuffleInnerBound
+from ..cylinders.xhatspecific_bounder import XhatSpecificInnerBound
+from ..cylinders.xhatxbar_bounder import XhatXbarInnerBound
+from ..opt.ph import PH
+from .solver_spec import solver_specification
+from .xhat_eval import Xhat_Eval
+
+
+def shared_options(cfg):
+    return cfg.options_dict()
+
+
+def _opt_kwargs(cfg, scenario_creator, scenario_denouement,
+                all_scenario_names, scenario_creator_kwargs=None,
+                batch=None, rho_setter=None, all_nodenames=None,
+                extensions=None, extension_kwargs=None, extra=None,
+                solver_root=None):
+    opts = shared_options(cfg)
+    if solver_root:
+        # the per-cylinder kernel-knob cascade: the cylinder's own root,
+        # then the unprefixed options
+        _, sopts = solver_specification(cfg, [solver_root, ""],
+                                        name_required=False)
+        opts.update(sopts)
+    if extra:
+        opts.update(extra)
+    kw = dict(options=opts,
+              all_scenario_names=all_scenario_names,
+              scenario_creator=scenario_creator,
+              scenario_denouement=scenario_denouement,
+              scenario_creator_kwargs=scenario_creator_kwargs,
+              batch=batch)
+    if rho_setter is not None:
+        kw["rho_setter"] = rho_setter
+    if all_nodenames is not None:
+        kw["all_nodenames"] = all_nodenames
+    if extensions is not None:
+        kw["extensions"] = extensions
+        kw["extension_kwargs"] = extension_kwargs
+    return kw
+
+
+def _hub_options(cfg):
+    o = {}
+    for k in ("rel_gap", "abs_gap", "max_stalled_iters"):
+        if cfg.get(k) is not None:
+            o[k] = cfg[k]
+    o["convthresh"] = cfg.get("convthresh", 1e-4)
+    return o
+
+
+def ph_hub(cfg, scenario_creator, scenario_denouement,
+           all_scenario_names, scenario_creator_kwargs=None,
+           ph_extensions=None, extension_kwargs=None, rho_setter=None,
+           all_nodenames=None, batch=None):
+    return {
+        "hub_class": PHHub,
+        "hub_kwargs": {"options": _hub_options(cfg)},
+        "opt_class": PH,
+        "opt_kwargs": _opt_kwargs(
+            cfg, scenario_creator, scenario_denouement,
+            all_scenario_names, scenario_creator_kwargs, batch,
+            rho_setter, all_nodenames, ph_extensions, extension_kwargs),
+    }
+
+
+def aph_hub(*args, **kwargs):
+    raise not_ported("vanilla.aph_hub (APH)", 10)
+
+
+def lshaped_hub(*args, **kwargs):
+    raise not_ported("vanilla.lshaped_hub (L-shaped)", 10)
+
+
+def _spoke(spoke_class, opt_class, cfg, scenario_creator,
+           scenario_denouement, all_scenario_names,
+           scenario_creator_kwargs=None, batch=None, extra=None,
+           spoke_options=None, all_nodenames=None, solver_root=None):
+    if solver_root is None:
+        # "LagrangianOuterBound" -> "lagrangian", etc.
+        solver_root = spoke_class.__name__.replace(
+            "OuterBound", "").replace("InnerBound", "").replace(
+            "Heuristic", "").lower()
+    return {
+        "spoke_class": spoke_class,
+        "spoke_kwargs": {"options": spoke_options or {}},
+        "opt_class": opt_class,
+        "opt_kwargs": _opt_kwargs(
+            cfg, scenario_creator, scenario_denouement,
+            all_scenario_names, scenario_creator_kwargs, batch,
+            all_nodenames=all_nodenames, extra=extra,
+            solver_root=solver_root),
+    }
+
+
+def fwph_spoke(*args, **kwargs):
+    raise not_ported("vanilla.fwph_spoke (FWPH)", 10)
+
+
+def lagrangian_spoke(cfg, scenario_creator, scenario_denouement,
+                     all_scenario_names, scenario_creator_kwargs=None,
+                     rho_setter=None, batch=None):
+    return _spoke(LagrangianOuterBound, PH, cfg, scenario_creator,
+                  scenario_denouement, all_scenario_names,
+                  scenario_creator_kwargs, batch)
+
+
+def lagranger_spoke(cfg, scenario_creator, scenario_denouement,
+                    all_scenario_names, scenario_creator_kwargs=None,
+                    rho_setter=None, batch=None):
+    extra = {}
+    if cfg.get("lagranger_rho_rescale_factors_json"):
+        with open(cfg["lagranger_rho_rescale_factors_json"]) as f:
+            extra["lagranger_rho_rescale_factors"] = {
+                int(k): v for k, v in json.load(f).items()}
+    return _spoke(LagrangerOuterBound, PH, cfg, scenario_creator,
+                  scenario_denouement, all_scenario_names,
+                  scenario_creator_kwargs, batch, extra=extra)
+
+
+def xhatlooper_spoke(cfg, scenario_creator, scenario_denouement,
+                     all_scenario_names, scenario_creator_kwargs=None,
+                     batch=None):
+    return _spoke(XhatLooperInnerBound, Xhat_Eval, cfg,
+                  scenario_creator, scenario_denouement,
+                  all_scenario_names, scenario_creator_kwargs, batch,
+                  spoke_options={"scen_limit":
+                                 cfg.get("xhat_scen_limit", 3)})
+
+
+def xhatshuffle_spoke(cfg, scenario_creator, scenario_denouement,
+                      all_scenario_names, scenario_creator_kwargs=None,
+                      all_nodenames=None, batch=None):
+    return _spoke(XhatShuffleInnerBound, Xhat_Eval, cfg,
+                  scenario_creator, scenario_denouement,
+                  all_scenario_names, scenario_creator_kwargs, batch,
+                  all_nodenames=all_nodenames,
+                  spoke_options={"reverse":
+                                 cfg.get("add_reversed_shuffle", False)})
+
+
+def xhatspecific_spoke(cfg, scenario_creator, scenario_denouement,
+                       all_scenario_names, scenario_dict=None,
+                       scenario_creator_kwargs=None, all_nodenames=None,
+                       batch=None):
+    return _spoke(XhatSpecificInnerBound, Xhat_Eval, cfg,
+                  scenario_creator, scenario_denouement,
+                  all_scenario_names, scenario_creator_kwargs, batch,
+                  all_nodenames=all_nodenames,
+                  spoke_options={"xhat_scenario_dict":
+                                 scenario_dict or {}})
+
+
+def xhatxbar_spoke(cfg, scenario_creator, scenario_denouement,
+                   all_scenario_names, scenario_creator_kwargs=None,
+                   batch=None):
+    return _spoke(XhatXbarInnerBound, Xhat_Eval, cfg, scenario_creator,
+                  scenario_denouement, all_scenario_names,
+                  scenario_creator_kwargs, batch)
+
+
+def xhatlshaped_spoke(*args, **kwargs):
+    raise not_ported("vanilla.xhatlshaped_spoke (L-shaped xhat)", 10)
+
+
+def slammax_spoke(cfg, scenario_creator, scenario_denouement,
+                  all_scenario_names, scenario_creator_kwargs=None,
+                  batch=None):
+    return _spoke(SlamMaxHeuristic, Xhat_Eval, cfg, scenario_creator,
+                  scenario_denouement, all_scenario_names,
+                  scenario_creator_kwargs, batch)
+
+
+def slammin_spoke(cfg, scenario_creator, scenario_denouement,
+                  all_scenario_names, scenario_creator_kwargs=None,
+                  batch=None):
+    return _spoke(SlamMinHeuristic, Xhat_Eval, cfg, scenario_creator,
+                  scenario_denouement, all_scenario_names,
+                  scenario_creator_kwargs, batch)
+
+
+def build_spokes(cfg, scenario_creator, scenario_denouement,
+                 all_scenario_names, scenario_creator_kwargs=None,
+                 batch=None, all_nodenames=None, scenario_dict=None):
+    """The flag-driven spoke list (the one home of the cfg-flag ->
+    factory dispatch)."""
+    sk = scenario_creator_kwargs
+    if cfg.get("fwph"):
+        fwph_spoke()
+    if cfg.get("xhatlshaped"):
+        xhatlshaped_spoke()
+    args = (cfg, scenario_creator, scenario_denouement,
+            all_scenario_names)
+    spokes = []
+    if cfg.get("lagrangian"):
+        spokes.append(lagrangian_spoke(*args, sk, batch=batch))
+    if cfg.get("lagranger"):
+        spokes.append(lagranger_spoke(*args, sk, batch=batch))
+    if cfg.get("xhatlooper"):
+        spokes.append(xhatlooper_spoke(*args, sk, batch=batch))
+    if cfg.get("xhatshuffle"):
+        spokes.append(xhatshuffle_spoke(*args, sk,
+                                        all_nodenames=all_nodenames,
+                                        batch=batch))
+    if cfg.get("xhatspecific"):
+        spokes.append(xhatspecific_spoke(*args,
+                                         scenario_dict=scenario_dict,
+                                         scenario_creator_kwargs=sk,
+                                         all_nodenames=all_nodenames,
+                                         batch=batch))
+    if cfg.get("xhatxbar"):
+        spokes.append(xhatxbar_spoke(*args, sk, batch=batch))
+    if cfg.get("slammax"):
+        spokes.append(slammax_spoke(*args, sk, batch=batch))
+    if cfg.get("slammin"):
+        spokes.append(slammin_spoke(*args, sk, batch=batch))
+    return spokes
+
+
+def extension_adder(hub_dict, ext_class, ext_kwargs=None):
+    raise not_ported("vanilla.extension_adder (MultiExtension)", 7)
+
+
+def add_fixer(hub_dict, cfg):
+    raise not_ported("vanilla.add_fixer (the Fixer extension)", 7)
+
+
+def add_multi_rho(hub_dict, cfg):
+    raise not_ported("vanilla.add_multi_rho (MultRhoUpdater)", 7)
+
+
+def add_norm_rho(hub_dict, cfg):
+    raise not_ported("vanilla.add_norm_rho (NormRhoUpdater)", 7)
+
+
+def add_wtracker(hub_dict, cfg):
+    raise not_ported("vanilla.add_wtracker (the wtracker extension)", 7)

@@ -354,3 +354,70 @@ def test_consensus_solve_on_card_matches_cpu(cuda):
             1.0, float(w.abs().max()))
     assert abs(ef.get_objective_value() - ref.get_objective_value()) \
         <= 1e-9 * abs(ref.get_objective_value())
+
+
+@pytest.mark.parametrize("mode", ["interleaved", "threads"])
+def test_farmer_wheel_on_card(cuda, monkeypatch, mode):
+    """A PH hub with a Lagrangian and an XhatShuffle spoke on farmer-3 at
+    crops_multiplier=2, float64, on the card.  The default (split) prep
+    sends the supersteps and Lagrangian solves to the kernel's split
+    form and the xhat system to its shared form; both must launch, the
+    launch counter must equal an independent count of the wrapper's
+    calls (the spokes launch from their own threads in threads mode),
+    and the bounds must bracket the EF optimum (the port's
+    ExtensiveForm in float64 on the card) within 1e-6 relative."""
+    import threading
+
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.cylinders.lagrangian_bounder import (
+        LagrangianOuterBound)
+    from mpisppy_tpu_torch.cylinders.xhatshufflelooper_bounder import (
+        XhatShuffleInnerBound)
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
+    S, cm = 3, 2
+    names = farmer.scenario_names_creator(S)
+    opts = {"defaultPHrho": 1.0, "PHIterLimit": 40, "convthresh": 0.0,
+            "pdhg_eps": 1e-7, "pdhg_max_iters": 20000}
+    calls, lock = [0], threading.Lock()
+    launch = pdhg.fused_chunk
+
+    def counted(*a):
+        with lock:
+            calls[0] += 1
+        return launch(*a)
+
+    monkeypatch.setattr(pdhg, "fused_chunk", counted)
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": 1e-4, "abs_gap": 1.0}},
+           "opt_class": PH,
+           "opt_kwargs": {"options": dict(opts), "all_scenario_names": names,
+                          "batch": farmer.build_batch(S, crops_multiplier=cm,
+                                                      device=cuda)}}
+    spokes = [{"spoke_class": cls, "spoke_kwargs": {"options": {}},
+               "opt_class": ocls,
+               "opt_kwargs": {"options": dict(opts),
+                              "all_scenario_names": names}}
+              for cls, ocls in ((LagrangianOuterBound, PH),
+                                (XhatShuffleInnerBound, Xhat_Eval))]
+    pdhg_chunk.launches = 0
+    pdhg_chunk.launch_shapes.clear()
+    ws = WheelSpinner(hub, spokes, mode=mode).spin()
+    torch.cuda.synchronize()
+    by_form = pdhg_chunk.launches_by("form")
+    assert by_form.get("split", 0) > 0 and by_form.get("shared", 0) > 0
+    assert pdhg_chunk.launches == calls[0] == sum(by_form.values())
+    assert ws.spcomm.failed_spokes == []
+    assert ws.spcomm.finalize_failures == []
+    assert ws.spcomm.opt.state.x.device.type == "cuda"
+    ef = ExtensiveForm({"pdhg_eps": 1e-9, "pdhg_max_iters": 400000}, names,
+                       batch=farmer.build_batch(S, crops_multiplier=cm,
+                                                device=cuda))
+    ef.solve_extensive_form()
+    opt = ef.get_objective_value()
+    tol = 1e-6 * abs(opt)
+    assert np.isfinite(ws.BestOuterBound) and np.isfinite(ws.BestInnerBound)
+    assert ws.BestOuterBound <= opt + tol
+    assert ws.BestInnerBound >= opt - tol

@@ -4,7 +4,9 @@
   `chip_smoke.py`, imports `jax` or anything of the JAX package
   `mpisppy_tpu` (the port's own name starts with `mpisppy_tpu`, so the
   check is on whole module components, not on a prefix).
-* A fresh interpreter runs the port's farmer PH on the CPU and finds no
+* A fresh interpreter runs the port's farmer PH and a farmer-3
+  interleaved wheel (PH hub, Lagrangian and XhatShuffle spokes, built
+  through `utils/config` and `utils/vanilla`) on the CPU and finds no
   `jax` and no `mpisppy_tpu.*` module loaded.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
@@ -40,6 +42,12 @@ def test_ast_no_jax_or_jax_package_imports():
     bad = []
     files = _port_files()
     assert len(files) > 10
+    # every subpackage of the port is scanned, the wheel's too
+    scanned = {p.relative_to(ROOT).parts[1] for p in files
+               if p.parent != ROOT}
+    assert {"cylinders", "resilience", "utils", "ops", "opt",
+            "models"} <= scanned
+    assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -68,9 +76,32 @@ ph = PH({"defaultPHrho": 1.0, "PHIterLimit": 5, "convthresh": 0.0,
 conv, eobj, triv = ph.ph_main()
 ph.evaluate_xhat(ph.root_xbar())
 ph.lagrangian_bound()
+
+from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+from mpisppy_tpu_torch.utils import config, vanilla
+cfg = config.Config()
+for g in ("popular_args", "ph_args", "two_sided_args", "lagrangian_args",
+          "xhatshuffle_args"):
+    getattr(cfg, g)()
+farmer.inparser_adder(cfg)
+cfg.parse_command_line("wheel", args=[
+    "--num-scens", "3", "--lagrangian", "--xhatshuffle",
+    "--max-iterations", "4"])
+names = farmer.scenario_names_creator(3)
+b = farmer.build_batch(3, device="cpu")
+hub = vanilla.ph_hub(cfg, farmer.scenario_creator, None, names, batch=b)
+hub["opt_kwargs"]["device"] = "cpu"
+spokes = vanilla.build_spokes(cfg, farmer.scenario_creator, None, names,
+                              batch=b)
+ws = WheelSpinner(hub, spokes).spin()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mpisppy_tpu"))
-print(json.dumps({"loaded": loaded, "eobj": eobj}))
+wheel = sorted(m for m in sys.modules
+               if m.startswith(("mpisppy_tpu_torch.cylinders.",
+                                "mpisppy_tpu_torch.resilience.",
+                                "mpisppy_tpu_torch.utils.")))
+print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
+                  "bounds": [ws.BestOuterBound, ws.BestInnerBound]}))
 """
 
 
@@ -81,6 +112,11 @@ def test_fresh_interpreter_port_run_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert np.isfinite(res["eobj"])
+    assert {"mpisppy_tpu_torch.cylinders.hub",
+            "mpisppy_tpu_torch.resilience.bounds",
+            "mpisppy_tpu_torch.utils.vanilla"} <= set(res["wheel"])
+    outer, inner = res["bounds"]
+    assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner
 
 
 def test_no_silent_cpu_without_cuda(monkeypatch):
