@@ -18,7 +18,9 @@ Phases, one JSON line each (any failure exits non-zero):
               memory) with A stored in f32, f64 and bf16 (f32 vectors);
               the shared and split forms must equal the dense kernel on
               the assembled matrices exactly; timings, the bound, the
-              variant, blocks per SM and waves
+              variant, blocks per SM and waves.  Then the dense and
+              split forms (f32) on a compacted slab: the prep gathered
+              to COMPACT_S=256 of the 1000 rows with ops.pdhg._gather_prep
   4. slice    PH on farmer at full width (S=1000, crops_multiplier=10,
               f32, the bench's options with its dense prep,
               no_split_prep=True): Iter0, a few PH iterations, one xhat
@@ -69,8 +71,23 @@ Phases, one JSON line each (any failure exits non-zero):
               iterations; the kernel's split and shared forms must both
               launch.  Supersteps, steps per spoke, bounds, gap, launches
               by form and dtype, f64 certifies, bound rejects, memory.
-Then the kernels line (each entry with its launches in `wheel_split`),
-the nvidia-smi line, and the result line.
+The slice, split, true_size and uc lines end with bench.py's telemetry
+extras: after the phase's measured window, PHASE_TIMING_ITERS more PH
+iterations under telemetry phase timing give `phase_seconds` (the mean
+seconds of the solve / psum / w_update / conv cuts) and
+`window_traffic`.  After true_size, the `compact` phase:
+pdhg_compact_threshold=0.5 on farmer S=1000, cm=10 (Iter0, one xhat,
+one Lagrangian bound, each beside the same step without compaction on
+the same batch and prep: segments, FLOPs not spent, launches by
+(form, S'); widths never grow, a launch below S=1000, bounds within
+10x their solve's eps), then Iter0 of the true-size instance at TRUE_S
+with compaction beside the true_size phase's.  In the wheel phase,
+`wheel_row_telemetry` spins wheel_row again with its own telemetry
+option into WHEEL_TELEMETRY_DIR: trace.json with one row each for the
+hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
+Then the kernels line (each entry with its launches in `wheel_split`
+and in the compact phase, and the dense and split forms with their
+compacted-slab run), the nvidia-smi line, and the result line.
 
 Imports nothing of jax and nothing of the JAX package (scipy only for
 the HiGHS reference of the sslp phase).  Exits non-zero,
@@ -144,7 +161,8 @@ SSLP_OPTS = {"pdhg_eps": 1e-5, "pdhg_max_iters": 200000}
 # S=100 at crops_multiplier=1, a PH hub, a Lagrangian and an
 # XhatShuffle spoke, threads mode over the host seqlock, to a certified
 # rel_gap of 1e-4 within 40 PH iterations.  The row's options without
-# its "telemetry": True (not ported, ROADMAP queue A item 8).
+# its "telemetry": True for `wheel_row`, with it for
+# `wheel_row_telemetry`.
 WHEEL_S = 100
 WHEEL_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 40, "convthresh": 0.0,
               "pdhg_eps": 1e-7, "pdhg_max_iters": 30000}
@@ -156,12 +174,17 @@ WHEEL_SPLIT_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
                     "--lagrangian", "--xhatshuffle", "--rel-gap", "0.01"]
 WHEEL_SPLIT_PH_ITERS = 20
 
-# H100 rates used for the bound (NVIDIA data sheets, dense, no sparsity):
-# (memory bytes/s, FP32 non-tensor FLOP/s, FP64 non-tensor FLOP/s)
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51.2e12, 25.6e12),
-    "H100": (3.35e12, 67e12, 34e12),          # SXM
-}
+# converged-scenario compaction (pdhg_compact_threshold): the value of
+# the bench's BENCH_COMPACT example (bench.py:1280-1285), and the width
+# of the gathered slab the kernel phase launches at (a seeded choice of
+# COMPACT_S of the S scenarios, as solve_compacted gathers survivors)
+COMPACT_THRESHOLD = 0.5
+COMPACT_S = 256
+# PH iterations run with telemetry phase timing after a phase's measured
+# window (bench.py:_telemetry_extras)
+PHASE_TIMING_ITERS = 2
+# where the wheel_row_telemetry run writes trace.json and metrics.jsonl
+WHEEL_TELEMETRY_DIR = os.path.join("build", "wheel_row_telemetry")
 
 # Kernel-vs-twin tolerance, as max|kernel - twin| / max(1, max|twin|):
 # both do the same arithmetic in the same order except the summation
@@ -189,13 +212,6 @@ def nvidia_smi():
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0].strip()
-
-
-def peaks(name):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100", PEAKS["H100"]
 
 
 def time_ms(fn, reps=5, batch=20, warmup=3, queue_behind_sleep=False):
@@ -353,15 +369,25 @@ def build_phase():
           "ptxas": report, "main_f32_step_loop": sass_summary(lib)})
 
 
-def solver_space_inputs(dtype, split=False):
+def compact_rows():
+    """COMPACT_S of the S scenario rows, a seeded choice in order: the
+    survivors a compacted solve gathers."""
+    return np.sort(np.random.default_rng(0).choice(S, COMPACT_S,
+                                                   replace=False))
+
+
+def solver_space_inputs(dtype, split=False, gather=None):
     """The chunk's inputs as PDHGSolver builds them for farmer S=1000,
     crops_multiplier=10 (Ruiz-scaled prep, cold start, omega=1): from
     the dense prep, or with split=True from the split prep of farmer's
-    default options (A is then a SplitA)."""
+    default options (A is then a SplitA).  gather: scenario rows to
+    gather the prep (`ops.pdhg._gather_prep`) and the batch down to, as
+    `solve_compacted` does."""
     import torch
 
     from mpisppy_tpu_torch.models import farmer
-    from mpisppy_tpu_torch.ops.pdhg import prepare_batch, prepare_batch_split
+    from mpisppy_tpu_torch.ops.pdhg import (_gather_prep, prepare_batch,
+                                            prepare_batch_split)
     b = farmer.build_batch(S, crops_multiplier=CM,
                            dtype=np.float32 if dtype == torch.float32
                            else np.float64)
@@ -370,16 +396,21 @@ def solver_space_inputs(dtype, split=False):
                                 b.row_lo, b.row_hi)
     else:
         p = prepare_batch(b.A, b.row_lo, b.row_hi)
+    c, q, lb, ub = b.c, b.qdiag, b.lb, b.ub
+    if gather is not None:
+        ii = torch.as_tensor(gather, device=c.device)
+        p = _gather_prep(p, ii)
+        c, q, lb, ub = c[ii], q[ii], lb[ii], ub[ii]
     dc = p.d_col
-    qs = b.qdiag * dc * dc
-    lbs = b.lb / dc
-    ubs = torch.where(torch.isfinite(b.ub), b.ub / dc, b.ub)
+    qs = q * dc * dc
+    lbs = lb / dc
+    ubs = torch.where(torch.isfinite(ub), ub / dc, ub)
     # a warm, non-trivial start: the box midpoint clipped
     x = torch.clamp(0.5 * (lbs + torch.clamp(ubs, max=1e3)), min=0.0)
     y = torch.zeros_like(p.row_lo)
     tau = 0.9 / (p.anorm + 0.9 * qs.amax(dim=1))
     sigma = (0.9 / p.anorm).expand(tau.shape)
-    vec = [t.contiguous() for t in (b.c * dc, qs, lbs, ubs, p.row_lo,
+    vec = [t.contiguous() for t in (c * dc, qs, lbs, ubs, p.row_lo,
                                     p.row_hi, x, y, tau, sigma)]
     return [p.A.contiguous()] + vec
 
@@ -504,7 +535,8 @@ def kernel_phase(name):
     import torch
 
     from mpisppy_tpu_torch.ops import pdhg_chunk
-    peak_name, (bw, f32_peak, f64_peak) = peaks(name)
+    from mpisppy_tpu_torch.utils.mfu import cuda_peaks
+    peak_name, (bw, f32_peak, f64_peak) = cuda_peaks(name)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     base = {False: solver_space_inputs(torch.float32),
             True: solver_space_inputs(torch.float32, split=True)}
@@ -538,6 +570,22 @@ def kernel_phase(name):
                 row["case"] = "uc_fallback"
             rows[(form, dname)] = row
             emit({"phase": "kernel", **row})
+    # the dense and split forms on a compacted slab: the prep gathered
+    # to COMPACT_S rows as solve_compacted gathers its survivors
+    for form in ("dense", "split"):
+        args = solver_space_inputs(torch.float32, split=form == "split",
+                                   gather=compact_rows())
+        A, vec = args[0], args[1:]
+        if form == "split":
+            check(tuple(A.vals.shape) == (COMPACT_S, A.rows.shape[0])
+                  and A.vals.is_contiguous(),
+                  f"the gathered SplitA's vals are {tuple(A.vals.shape)}")
+        row = measure_form(form, A, vec, "float32", f32_peak, bw,
+                           peak_name, n_sm)
+        check(row["S"] == COMPACT_S, f"the slab has S={row['S']}")
+        row["case"] = "compacted_slab"
+        rows[(form + "_compacted", "float32")] = row
+        emit({"phase": "kernel", **row})
     return rows
 
 
@@ -558,6 +606,43 @@ def launch_table():
     return [{"form": k[0], "S": k[1], "M": k[2], "N": k[3], "dtype": k[4],
              "launches": n}
             for k, n in sorted(pdhg_chunk.launch_shapes.items())]
+
+
+def phase_timing(ph, n=PHASE_TIMING_ITERS):
+    """bench.py's _telemetry_extras: after a phase's measured window, n
+    more PH iterations under telemetry phase timing (the superstep as
+    its solve / x̄ psum / W update / conv cuts, a device sync after
+    each); the mean seconds of each cut, and the window traffic."""
+    import torch
+
+    from mpisppy_tpu_torch import telemetry
+    out = {"window_traffic": telemetry.traffic_counters()}
+    prev = telemetry._active
+    tel = telemetry.configure({"enabled": True, "phase_timing": True})
+    saved = ph._tel
+    ph._tel = tel
+    t = time.time()
+    try:
+        for _ in range(n):
+            ph.ph_iteration()
+        torch.cuda.synchronize()
+        hists = tel.registry.snapshot()["histograms"]
+    finally:
+        ph._tel = saved
+        telemetry._active = prev
+    cuts = ("solve", "psum", "w_update", "conv")
+    secs = {k: hists.get(f"ph.phase.{k}_seconds", {}).get("mean")
+            for k in cuts}
+    check(all(v is not None and np.isfinite(v) for v in secs.values())
+          and all(hists[f"ph.phase.{k}_seconds"]["count"] == n
+                  for k in cuts), f"phase timing incomplete: {hists}")
+    total = sum(secs.values())
+    out.update({"phase_seconds": secs, "phase_timing_iters": n,
+                "phase_timing_wall_s": time.time() - t,
+                "solve_share_of_phases": secs["solve"] / total,
+                "ph_iteration_mean_s":
+                    hists["ph.iteration_seconds"]["mean"]})
+    return out
 
 
 def slice_phase():
@@ -618,6 +703,7 @@ def slice_phase():
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "steps": steps, "pdhg_stats": ph.pdhg_stats(),
            "gap_loop": gap}
+    out.update(phase_timing(ph))
     emit(out)
     return out
 
@@ -665,6 +751,7 @@ def split_phase():
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "wall_s": wall, "gap_loop": gap,
            "pdhg_stats": ph.pdhg_stats()}
+    out.update(phase_timing(ph))
     emit(out)
     return out
 
@@ -682,7 +769,8 @@ def true_size_phase(name, split_gap):
     from mpisppy_tpu_torch.models import farmer
     from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
     from mpisppy_tpu_torch.opt.ph import PH
-    peak_name, (bw, f32_peak, _) = peaks(name)
+    from mpisppy_tpu_torch.utils.mfu import cuda_peaks
+    peak_name, (bw, f32_peak, _) = cuda_peaks(name)
     # under the bench's iteration caps Iter0 leaves part of the
     # probability mass primal-infeasible at this size (0.785 feasible at
     # S=1000): the run goes on with that mass reported, as the option
@@ -779,7 +867,10 @@ def true_size_phase(name, split_gap):
            "peaks": {"card": peak_name, "flops_per_s": f32_peak},
            "profile_1_ph_iteration": prof,
            "single_straggler_f64": straggler,
-           "pdhg_stats": ph.pdhg_stats()}
+           "pdhg_stats": ph.pdhg_stats(),
+           "iter0": {"s": steps[1]["s"], "trivial_bound": trivial,
+                     "certify_s": steps[1]["certify_s"],
+                     "iter0_feasible_mass": ph.iter0_feas_mass}}
     # what the bench's gap loop would take here: Iter0, then as many PH
     # iterations and bound checks as the cm=10 split gap loop needed (an
     # assumption: the loop's PH iteration count at cm=1000 is not
@@ -793,6 +884,159 @@ def true_size_phase(name, split_gap):
         "iter0 + (PH iterations of the cm=10 split gap loop, assumed for "
         "cm=1000, not measured) x mean PH iteration wall here + (its "
         "bound checks) x (xhat + Lagrangian wall here); not run")
+    out.update(phase_timing(ph))
+    emit(out)
+    return out
+
+
+def compact_tolerance(opts, step, residuals):
+    """Relative tolerance within which a compacted solve's bound must
+    agree with the uncompacted one (the JAX package's compaction
+    contract: survivors restart each segment, with their restart
+    average and omega re-seeded, so the two runs stop at different
+    iterates that agree only up to the KKT test).  For one scenario whose
+    solve ended with KKT residual r = max(pres, dres, gap), the dual
+    objective lies within ~r (1 + |p| + |d|) ~ r (1 + 2 |obj|) of the
+    scenario's optimum, so the two runs' expected bounds differ by at
+    most ~2 (r̄_c + r̄_u) relative, r̄ the probability-weighted residual
+    of each run (below the solve's eps e, clamped to the f32 floor
+    1.19e-5, where every scenario converged; larger where one ends at
+    its cap).  The tolerance is twice that, and at least 10 e for f32
+    rounding; `residuals` is None for a step that solves the same
+    problem uncompacted in both runs (xhat), which must agree to 10 e."""
+    eps = opts["lagrangian_eps"] if step == "lagrangian_bound" \
+        else opts["pdhg_eps"]
+    floor = 10.0 * max(eps, 100 * float(np.finfo(np.float32).eps))
+    return floor if residuals is None else max(floor, 4.0 * sum(residuals))
+
+
+def compact_phase(true_iter0):
+    """Converged-scenario compaction (pdhg_compact_threshold=
+    COMPACT_THRESHOLD, the bench's BENCH_COMPACT example) on farmer
+    S=1000, cm=10, f32 with the split phase's options.  First, without
+    compaction: Iter0, one xhat at its x̄ and one Lagrangian bound at its
+    W.  Then a second PH over the same batch and prep, with compaction:
+    Iter0, and xhat and the Lagrangian bound at the first run's x̄ and W,
+    so that each step solves the same problem in both runs.  Each
+    step's wall, segment trajectory, FLOPs not spent and launches by
+    (form, S').  evaluate_xhat solves through `_solve_impl`, not
+    solve_loop, in both packages: it is never compacted.  Then Iter0 of
+    the true-size instance at TRUE_S with the same threshold, beside the
+    true_size phase's uncompacted Iter0 (`true_iter0`)."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+    from mpisppy_tpu_torch.opt.ph import PH
+    names = [f"scen{i}" for i in range(S)]
+    opts_c = dict(SPLIT_OPTS, pdhg_compact_threshold=COMPACT_THRESHOLD)
+    b = farmer.build_batch(S, crops_multiplier=CM, dtype=np.float32)
+    ph_c = PH(opts_c, names, batch=b)
+    ph_u = PH(dict(SPLIT_OPTS), names, batch=b, prep=ph_c.prep)
+    check(ph_c.solver.compact_threshold == COMPACT_THRESHOLD
+          and ph_u.solver.compact_threshold == 0.0,
+          "the compaction option did not reach the solvers")
+
+    def run(ph, xbar=None, W=None):
+        reset_counts()
+        steps, last = {}, {}
+        solve_loop = ph.solve_loop
+
+        def recording(*a, **kw):
+            last["res"] = solve_loop(*a, **kw)
+            return last["res"]
+
+        ph.solve_loop = recording
+        for step, fn in (
+                ("iter0", ph.Iter0),
+                ("evaluate_xhat", lambda: ph.evaluate_xhat(
+                    ph.root_xbar() if xbar is None else xbar)[0]),
+                ("lagrangian_bound", lambda: ph.lagrangian_bound(W=W))):
+            saved0, ph._active_traj = ph._flops_saved, []
+            n0 = dict(pdhg_chunk.launch_shapes)
+            last.clear()
+            t = time.time()
+            value = fn()
+            torch.cuda.synchronize()
+            res = last.get("res")
+            steps[step] = {
+                "s": time.time() - t, "value": value,
+                "segments": list(ph._active_traj),
+                "flops_saved": ph._flops_saved - saved0,
+                "residual": None if res is None else float(torch.sum(
+                    b.prob * torch.maximum(torch.maximum(res.pres,
+                                                         res.dres),
+                                           res.gap))),
+                "converged": None if res is None
+                else int(torch.sum(res.converged)),
+                "launches_by_form_S": {
+                    f"{k[0]}/{k[1]}": n - n0.get(k, 0)
+                    for k, n in pdhg_chunk.launch_shapes.items()
+                    if n != n0.get(k, 0)}}
+        del ph.solve_loop
+        return steps, launch_table(), pdhg_chunk.launches_by("form")
+
+    steps_u, _, by_form_u = run(ph_u)
+    steps_c, shapes_c, by_form_c = run(ph_c, xbar=ph_u.root_xbar(),
+                                       W=ph_u.state.W)
+    narrow = sum(r["launches"] for r in shapes_c if r["S"] < S)
+    check(narrow > 0, f"no launch below S={S} with compaction: {shapes_c}")
+    gathered = False
+    for step, st in steps_c.items():
+        widths = [t["width"] for t in st["segments"]]
+        check(widths == sorted(widths, reverse=True),
+              f"{step}: a compacted width grew: {widths}")
+        gathered |= any(w < S for w in widths)
+        u = steps_u[step]
+        tol = compact_tolerance(
+            opts_c, step, None if st["residual"] is None
+            else (st["residual"], u["residual"]))
+        st["rel_diff_vs_uncompacted"] = (abs(st["value"] - u["value"])
+                                         / max(1.0, abs(u["value"])))
+        st["tol_rel"] = tol
+        check(np.isfinite(st["value"])
+              and st["rel_diff_vs_uncompacted"] <= tol,
+              f"{step}: compacted {st['value']} against uncompacted "
+              f"{u['value']} (tol {tol:.2e})")
+    check(gathered, "no compacted segment ran below full width")
+    out = {"phase": "compact", "S": S, "crops_multiplier": CM,
+           "dtype": "float32", "compact_threshold": COMPACT_THRESHOLD,
+           "options": opts_c, "compacted": steps_c,
+           "uncompacted": steps_u,
+           "launch_shapes_compacted": shapes_c,
+           "launches_by_form_compacted": by_form_c,
+           "launches_by_form_uncompacted": by_form_u,
+           "launches_below_full_width": narrow,
+           "pdhg_stats_compacted": ph_c.pdhg_stats()}
+    del ph_c, ph_u
+
+    # true size: Iter0 with the same threshold
+    bt = farmer.build_batch(TRUE_S, crops_multiplier=TRUE_CM,
+                            dtype=np.float32)
+    ph = PH(dict(SPLIT_OPTS, PHIterLimit=TRUE_PH_ITERS,
+                 iter0_infeasibility_ok=True,
+                 pdhg_compact_threshold=COMPACT_THRESHOLD),
+            [f"scen{i}" for i in range(TRUE_S)], batch=bt)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    trivial = ph.Iter0()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    widths = [s_["width"] for s_ in ph._active_traj]
+    check(widths == sorted(widths, reverse=True),
+          f"true-size Iter0: a compacted width grew: {widths}")
+    check(np.isfinite(trivial), f"true-size compacted Iter0 {trivial}")
+    out["true_size_iter0"] = {
+        "S": TRUE_S, "crops_multiplier": TRUE_CM,
+        "compacted": {"s": wall, "trivial_bound": trivial,
+                      "iter0_feasible_mass": ph.iter0_feas_mass,
+                      "certify_s": ph._certify_wall,
+                      "segments": list(ph._active_traj),
+                      "flops_saved": ph._flops_saved,
+                      "matmul_chunks": pdhg.matmul_chunks,
+                      "solve_iters": ph.pdhg_stats()["inner_iters"]},
+        "uncompacted_true_size_phase": true_iter0}
     emit(out)
     return out
 
@@ -1090,6 +1334,7 @@ def uc_phase():
     # above were read)
     out["consensus_route"] = consensus_step_timing(
         ExtensiveForm({"pdhg_eps": 1e-5}, names, batch=b), b)
+    out.update(phase_timing(ph))
     emit(out)
     return out
 
@@ -1229,7 +1474,8 @@ def consensus_step_timing(ef, b):
     import torch
 
     from mpisppy_tpu_torch.ops import pdhg
-    _, (bw, f32_peak, _) = peaks(torch.cuda.get_device_name(0))
+    from mpisppy_tpu_torch.utils.mfu import cuda_peaks
+    _, (bw, f32_peak, _) = cuda_peaks(torch.cuda.get_device_name(0))
     p, prob = ef.prep, b.prob[:, None]
     dc = p.d_col
     vec = [b.c * prob * dc, b.qdiag * prob * dc * dc,
@@ -1366,50 +1612,127 @@ def spin_wheel(hub_dict, spoke_dicts, mode):
             torch.cuda.max_memory_allocated() - mem0}
 
 
+def wheel_row_dicts(names, batch, opts):
+    """bench.py's wheel_mpmd row: PH hub, Lagrangian and XhatShuffle
+    spokes, every optimizer with `opts`."""
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.cylinders.lagrangian_bounder import (
+        LagrangianOuterBound)
+    from mpisppy_tpu_torch.cylinders.xhatshufflelooper_bounder import (
+        XhatShuffleInnerBound)
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
+    hub_dict = {"hub_class": PHHub,
+                "hub_kwargs": {"options": dict(WHEEL_HUB_OPTS)},
+                "opt_class": PH,
+                "opt_kwargs": {"options": dict(opts),
+                               "all_scenario_names": names,
+                               "batch": batch}}
+    spoke_dicts = [
+        {"spoke_class": LagrangianOuterBound,
+         "spoke_kwargs": {"options": {}}, "opt_class": PH,
+         "opt_kwargs": {"options": dict(opts),
+                        "all_scenario_names": names}},
+        {"spoke_class": XhatShuffleInnerBound,
+         "spoke_kwargs": {"options": {}}, "opt_class": Xhat_Eval,
+         "opt_kwargs": {"options": dict(opts),
+                        "all_scenario_names": names}}]
+    return hub_dict, spoke_dicts
+
+
+def wheel_row_telemetry(names, batch, off_row, opt):
+    """The wheel_mpmd row as bench.py writes it: every optimizer with
+    its "telemetry": True, here with a dir for trace.json and
+    metrics.jsonl (phase timing on, the default: the hub runs the phased
+    superstep).  Its counters, its wall beside the telemetry-off row's,
+    and the spans per trace row."""
+    from mpisppy_tpu_torch import telemetry
+    d = WHEEL_TELEMETRY_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    telemetry.reset()
+    opts = dict(WHEEL_OPTS, telemetry={"enabled": True, "dir": d})
+    try:
+        ws, row = spin_wheel(*wheel_row_dicts(names, batch, opts),
+                             "threads")
+        wheel = telemetry.wheel_counters()
+        traffic = telemetry.traffic_counters()
+        hub = ws.spcomm
+        check(hub.telemetry.enabled and hub.telemetry.out_dir == d,
+              "the wheel's telemetry is not the row's")
+    finally:
+        telemetry.reset()
+    tol = 1e-5 * abs(opt)
+    check(row["best_outer"] <= opt + tol and row["best_inner"] >= opt - tol,
+          f"telemetry wheel bounds [{row['best_outer']}, "
+          f"{row['best_inner']}] do not bracket {opt}")
+    with open(os.path.join(d, "trace.json")) as f:
+        evs = json.load(f)["traceEvents"]
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        snap = json.loads(f.read().strip().splitlines()[-1])
+    rows = {e["pid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    labels = sorted(rows.values())
+    check(len(labels) == 3 and "hub" in labels
+          and sum(lb.startswith("spoke0:") for lb in labels) == 1
+          and sum(lb.startswith("spoke1:") for lb in labels) == 1,
+          f"trace rows {labels}")
+    spans = {}
+    for e in evs:
+        if e["ph"] == "X":
+            key = f"{rows.get(e['pid'], e['pid'])}/{e['name']}"
+            spans[key] = spans.get(key, 0) + 1
+    c = snap["counters"]
+    check(c.get("window.reads", 0) > 0 and c.get("window.writes", 0) > 0,
+          f"window traffic {c}")
+    check(c.get("wheel.corrupt_reads", 0) == 0,
+          f"{c.get('wheel.corrupt_reads')} corrupt reads")
+    rejects = int(sum(row["bound_rejects"].values()))
+    check(c.get("window.bound_rejects", 0) == rejects
+          == traffic["window_bound_rejects"],
+          f"bound rejects: registry {c.get('window.bound_rejects', 0)}, "
+          f"hub {rejects}")
+    hists = snap["histograms"]
+    return {"phase": "wheel_row_telemetry", "S": WHEEL_S,
+            "crops_multiplier": 1, "dtype": "float32",
+            "options": opts, "hub_options": WHEEL_HUB_OPTS,
+            **row, "telemetry_dir": d,
+            "wall_s_telemetry_off": off_row["wall_s"],
+            "wall_ratio_on_over_off": row["wall_s"] / off_row["wall_s"],
+            "wheel_counters": wheel, "traffic_counters": traffic,
+            "trace_rows": labels, "spans_per_row_and_name": spans,
+            "trace_events": len(evs),
+            "phase_seconds_mean": {
+                k: hists.get(f"ph.phase.{k}_seconds", {}).get("mean")
+                for k in ("solve", "psum", "w_update", "conv")},
+            "superstep_phases_timed": hists.get(
+                "ph.phase.solve_seconds", {}).get("count", 0)}
+
+
 def wheel_phase():
-    """The hub-and-spoke wheel on the card, two runs.
+    """The hub-and-spoke wheel on the card, three runs.
 
     (a) `wheel_row`: bench.py's wheel_mpmd protocol on one device,
         threads mode over the host seqlock: farmer S=100, cm=1, f32, PH
-        hub + Lagrangian + XhatShuffle.  Its bounds must bracket the
-        farmer-100 optimum, computed on the card by the port's
-        ExtensiveForm in f64 (and by HiGHS on the host as a check).
+        hub + Lagrangian + XhatShuffle, telemetry off.  Its bounds must
+        bracket the farmer-100 optimum, computed on the card by the
+        port's ExtensiveForm in f64 (and by HiGHS on the host as a
+        check).
+    (a') `wheel_row_telemetry`: the same row with its own telemetry
+        option, as the bench writes it (wheel_row_telemetry).
     (b) `wheel_split`: farmer S=1000, cm=10, f32 built through the
         port's config and vanilla as examples/farmer_cylinders.py does,
         interleaved, with the split phase's options: the split and
         shared forms of the kernel must both launch during the spin."""
     import torch
 
-    from mpisppy_tpu_torch.cylinders.hub import PHHub
-    from mpisppy_tpu_torch.cylinders.lagrangian_bounder import (
-        LagrangianOuterBound)
-    from mpisppy_tpu_torch.cylinders.xhatshufflelooper_bounder import (
-        XhatShuffleInnerBound)
     from mpisppy_tpu_torch.models import farmer
     from mpisppy_tpu_torch.opt.ef import ExtensiveForm
-    from mpisppy_tpu_torch.opt.ph import PH
     from mpisppy_tpu_torch.utils import config, vanilla
-    from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
 
-    # (a) the bench's row
+    # (a) the bench's row, telemetry off
     names = farmer.scenario_names_creator(WHEEL_S)
     batch = farmer.build_batch(WHEEL_S, dtype=np.float32)
-    hub_dict = {"hub_class": PHHub,
-                "hub_kwargs": {"options": dict(WHEEL_HUB_OPTS)},
-                "opt_class": PH,
-                "opt_kwargs": {"options": dict(WHEEL_OPTS),
-                               "all_scenario_names": names,
-                               "batch": batch}}
-    spoke_dicts = [
-        {"spoke_class": LagrangianOuterBound,
-         "spoke_kwargs": {"options": {}}, "opt_class": PH,
-         "opt_kwargs": {"options": dict(WHEEL_OPTS),
-                        "all_scenario_names": names}},
-        {"spoke_class": XhatShuffleInnerBound,
-         "spoke_kwargs": {"options": {}}, "opt_class": Xhat_Eval,
-         "opt_kwargs": {"options": dict(WHEEL_OPTS),
-                        "all_scenario_names": names}}]
-    ws, row = spin_wheel(hub_dict, spoke_dicts, "threads")
+    ws, row = spin_wheel(*wheel_row_dicts(names, batch, WHEEL_OPTS),
+                         "threads")
     t = time.time()
     ef = ExtensiveForm({"pdhg_eps": 1e-7, "pdhg_max_iters": 400000},
                        names, batch=farmer.build_batch(WHEEL_S))
@@ -1428,8 +1751,8 @@ def wheel_phase():
              "dtype": "float32", "options": WHEEL_OPTS,
              "hub_options": WHEEL_HUB_OPTS,
              "cuts": {"telemetry": {"bench": True, "here": False,
-                                    "why": "not ported (ROADMAP queue A "
-                                           "item 8)"}},
+                                    "why": "measured with it on in "
+                                           "wheel_row_telemetry"}},
              **row, "ef_optimum_f64": opt, "ef_s": ef_s,
              "ef_iters": int(ef_res.iters),
              "ef_converged": bool(ef_res.converged.all()),
@@ -1437,6 +1760,9 @@ def wheel_phase():
              "bracket_tol_rel": 1e-5}
     emit(out_a)
     del ws, ef
+    # (a') the same row with its own telemetry option
+    out_t = wheel_row_telemetry(names, batch, row, opt)
+    emit(out_t)
 
     # (b) through config and vanilla, split prep
     cfg = config.Config()
@@ -1527,8 +1853,11 @@ def main():
     sp = split_phase()
     emit({"phase": "split_done", "s": time.time() - t})
     t = time.time()
-    true_size_phase(name, sp["gap_loop"])
+    ts = true_size_phase(name, sp["gap_loop"])
     emit({"phase": "true_size_done", "s": time.time() - t})
+    t = time.time()
+    cp = compact_phase(ts["iter0"])
+    emit({"phase": "compact_done", "s": time.time() - t})
     t = time.time()
     uc_phase()
     emit({"phase": "uc_done", "s": time.time() - t})
@@ -1594,6 +1923,21 @@ def main():
                 if r["form"] == "shared" and (r["M"], r["N"]) == (174, 114))
             if form == "shared_uc"
             else wsplit["launches_by_form"].get(form, 0))
+        # its launches in the compact phase's compacted run, counted
+        # there (for shared_uc: the shared form at M=174, N=114)
+        entry["launches_compact"] = (
+            sum(r["launches"] for r in cp["launch_shapes_compacted"]
+                if r["form"] == "shared" and (r["M"], r["N"]) == (174, 114))
+            if form == "shared_uc"
+            else cp["launches_by_form_compacted"].get(form, 0))
+        slab = rows.get((form + "_compacted", "float32"))
+        if slab is not None:
+            # the same form on a slab gathered to COMPACT_S rows
+            entry["compacted_slab"] = {
+                k: slab[k] for k in ("S", "max_abs_err", "max_rel_err",
+                                     "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "share_of_bound",
+                                     "blocks_per_sm", "waves")}
         check(entry["launches"] > 0, f"the {form} form launched no time "
               f"on its path")
         kernels.append(entry)

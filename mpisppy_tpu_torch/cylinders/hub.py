@@ -8,6 +8,12 @@ max_stalled_iters).  Each incoming bound is screened
 spoke that fails, or exceeds its budget of rejected bounds or corrupt
 reads, is pruned from the wheel and the run goes on without it.
 
+Telemetry: rejected bounds and corrupt reads are counted
+(window.bound_rejects, wheel.corrupt_reads) and logged as events, each
+improvement of a best bound sets the hub.best_outer / hub.best_inner
+gauges and a hub.bounds counter sample on the trace, and each
+`PHHub.sync()` is a hub.sync span.
+
 Not ported yet: `APHHub` and `LShapedHub` (ROADMAP.md queue A item 10),
 the multiproc supervisor (item 11: `supervisor` stays None) and the
 cross-scenario cut wiring of `cross_scen_spoke` (item 7).
@@ -72,8 +78,11 @@ class Hub(SPCommunicator):
             self.options.get("max_bound_rejects", 25))
         self._max_corrupt_reads = int(
             self.options.get("max_corrupt_reads", 10))
+        # bound-progression and reject telemetry (no-ops when off)
         self._c_rejects = self.telemetry.counter("window.bound_rejects")
         self._c_corrupt = self.telemetry.counter("wheel.corrupt_reads")
+        self._g_outer = self.telemetry.gauge("hub.best_outer")
+        self._g_inner = self.telemetry.gauge("hub.best_inner")
 
     def _spoke_name(self, i):
         return type(self.spokes[i]).__name__
@@ -117,7 +126,7 @@ class Hub(SPCommunicator):
             if getattr(sp, "_failed", False):
                 continue
             try:
-                sp.step()
+                sp.timed_step()
             except Exception as e:
                 self._mark_spoke_failed(i, e)
 
@@ -220,6 +229,8 @@ class Hub(SPCommunicator):
             return True
         self.bound_rejects[i] += 1
         self._c_rejects.inc()
+        self.telemetry.event("hub.bound_reject", spoke=i, kind=kind,
+                             reason=str(reason))
         n = int(self.bound_rejects[i])
         if n == 1 or n % 10 == 0:
             global_toc(f"WARNING: rejected bound from spoke {i} "
@@ -245,6 +256,8 @@ class Hub(SPCommunicator):
             return data, wid, True
         self.corrupt_reads[i] += 1
         self._c_corrupt.inc()
+        self.telemetry.event("hub.corrupt_read", spoke=i,
+                             reason=str(reason))
         n = int(self.corrupt_reads[i])
         if n == 1 or n % 10 == 0:
             global_toc(f"WARNING: rejected corrupt window read from "
@@ -286,11 +299,20 @@ class Hub(SPCommunicator):
             else:
                 self._c_stale.inc()
 
+    def _record_bound(self, kind, value, gauge):
+        """Bound progression: a gauge for the snapshots and a Chrome
+        counter sample, so a trace viewer graphs hub.bounds over the run
+        (finite values only: counter samples are numeric JSON)."""
+        if self.telemetry.enabled and np.isfinite(value):
+            gauge.set(value)
+            self.telemetry.tracer.counter("hub.bounds", {kind: value})
+
     def OuterBoundUpdate(self, new_bound, idx=None, char="*"):
         if self._ob_better(new_bound, self.BestOuterBound):
             self.latest_ob_char = (self.spoke_chars.get(idx, char)
                                    if idx is not None else char)
             self.BestOuterBound = new_bound
+            self._record_bound("outer", new_bound, self._g_outer)
         return self.BestOuterBound
 
     def InnerBoundUpdate(self, new_bound, idx=None, char="*"):
@@ -298,6 +320,7 @@ class Hub(SPCommunicator):
             self.latest_ib_char = (self.spoke_chars.get(idx, char)
                                    if idx is not None else char)
             self.BestInnerBound = new_bound
+            self._record_bound("inner", new_bound, self._g_inner)
         return self.BestInnerBound
 
     # -- outbound ---------------------------------------------------------
@@ -330,13 +353,14 @@ class PHHub(Hub):
         self.wire_spokes()
 
     def sync(self):
-        self._drain_failures()
-        self.send_ws()
-        self.send_nonants()
-        if self.drive_spokes_inline:
-            self._step_spokes()
-        self.receive_outerbounds()
-        self.receive_innerbounds()
+        with self.telemetry.span("hub.sync"):
+            self._drain_failures()
+            self.send_ws()
+            self.send_nonants()
+            if self.drive_spokes_inline:
+                self._step_spokes()
+            self.receive_outerbounds()
+            self.receive_innerbounds()
 
     def is_converged(self):
         if (not np.isfinite(self.BestOuterBound)

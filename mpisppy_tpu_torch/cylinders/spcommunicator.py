@@ -13,8 +13,12 @@ Backends: "python" (alias "seqlock") is the mailbox below; names
 registered through `register_window_backend` plug in behind the same
 contract.  Not ported yet: the C++ "native" seqlock (ROADMAP.md queue
 A item 11) and the device-resident "device" / "collective" backends
-(item 13), which raise where selected; window telemetry (item 8) —
-the port binds null handles and refuses a `telemetry` option.
+(item 13), which raise where selected.
+
+Window traffic is counted in the telemetry registry (window.writes,
+window.reads, window.stale_reads, window.kill_signals): each cylinder
+binds its handles once, from `options["telemetry"]`, and they are
+null no-ops when telemetry is off.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import threading
 import numpy as np
 
 from .. import not_ported
+from .. import telemetry as _telemetry
 from ..resilience.bounds import PayloadGuard, payload_checksum
 
 
@@ -137,22 +142,6 @@ class WindowPair:
             hub_length, spoke_length, **(backend_kwargs or {}))
 
 
-class _NullCounter:
-    def inc(self, n=1):
-        pass
-
-
-class NullTelemetry:
-    """The window-traffic handles a cylinder binds, all no-ops:
-    telemetry is not ported yet (ROADMAP.md queue A item 8)."""
-
-    enabled = False
-    _counter = _NullCounter()
-
-    def counter(self, name):
-        return self._counter
-
-
 class SPCommunicator:
     """Base of Hub and Spoke: owns an optimization object (`opt`, an
     SPOpt subclass) and its window endpoints."""
@@ -160,10 +149,14 @@ class SPCommunicator:
     def __init__(self, spbase_object, options=None):
         self.opt = spbase_object
         self.options = dict(options or {})
-        if self.options.get("telemetry") is not None:
-            raise not_ported("option 'telemetry'", 8)
         self.opt.spcomm = self
-        self.telemetry = NullTelemetry()
+        # the process-global handle (shared with the optimizers when the
+        # configs agree); its instruments are no-ops when it is off
+        self.telemetry = _telemetry.configure_from_options(
+            self.options.get("telemetry"))
+        # the trace row of this cylinder's spans (None = the hub's main
+        # row; WheelSpinner names each spoke's track)
+        self.telemetry_track = None
         tel = self.telemetry
         self._c_writes = tel.counter("window.writes")
         self._c_reads = tel.counter("window.reads")

@@ -7,8 +7,11 @@ do a batched solve pass, post results.  The threads mode loops
 types drive the hub's window wiring.
 
 Windows carry host float64 vectors; a spoke turns them back into
-tensors of its batch's dtype on its device where it solves.  Not
-ported yet: the `chaos` fault injectors (ROADMAP.md queue A item 6).
+tensors of its batch's dtype on its device where it solves.  With
+telemetry on, each step is a `<class>.step` span on the spoke's own
+trace row (`timed_step`), and each bound a spoke posts sets its
+wheel.slice_bound.<track> gauge.  Not ported yet: the `chaos` fault
+injectors (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -93,6 +96,18 @@ class Spoke(SPCommunicator):
         (the threads loop backs off after a no-op step)."""
         raise NotImplementedError
 
+    def timed_step(self):
+        """step() under a span on this spoke's own trace track, so each
+        spoke renders as its own row of the merged timeline.  Just
+        step() when telemetry is off."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return self.step()
+        tr = tel.tracer
+        with tr.track(self.telemetry_track):
+            with tr.span(f"{type(self).__name__}.step"):
+                return self.step()
+
     def _heartbeat(self):
         """Keep the to_hub write_id advancing; bound spokes re-post."""
 
@@ -116,7 +131,7 @@ class Spoke(SPCommunicator):
         while not self.got_kill_signal():
             did = False
             if self.get_serial_number() != 0:
-                did = self.step()
+                did = self.timed_step()
             now = time.time()
             if now - self._last_heartbeat >= self.heartbeat_interval:
                 self._last_heartbeat = now
@@ -179,6 +194,17 @@ class _BoundSpoke(Spoke):
         update is idempotent)."""
         if self._got_bound:
             self.spoke_to_hub([self.bound])
+
+    def spoke_to_hub(self, values):
+        """A bound post also sets this spoke's bound-progression gauge
+        (wheel.slice_bound.<track>, read by telemetry.wheel_counters),
+        keyed by its trace track."""
+        super().spoke_to_hub(values)
+        if self.telemetry.enabled and len(values) \
+                and np.isfinite(values[0]):
+            track = self.telemetry_track or type(self).__name__
+            self.telemetry.gauge(
+                f"wheel.slice_bound.{track}").set(float(values[0]))
 
     def _append_trace(self, value):
         if self._trace_path is None:

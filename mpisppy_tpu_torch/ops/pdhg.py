@@ -34,9 +34,12 @@ step segment-sums the gradient's nonant slots over the node members,
 which couples the scenarios that the kernel keeps apart.  The JAX
 package keeps these solves off its Pallas kernel for the same reason.
 
-Not ported yet (ROADMAP queue A): `solve_compacted` and the
-`MPISPPY_TPU_PDHG` environment overlay.  Each raises
-NotImplementedError where it would be selected.
+`PDHGSolver.solve_compacted` (opt-in through `compact_threshold`)
+segments a solve on the host and gathers the unconverged scenarios into
+a power-of-two width (`width_bucket`), so converged scenarios stop
+paying for steps; the kernel then launches at the narrower width.
+`PDHGSolver.from_options` overlays the MPISPPY_TPU_PDHG environment
+variable on the options.
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..ir import SplitA, node_segment_sum
 from ..ir import bmatvec as _Ax
 from ..ir import bmatvec_t as _ATy
+from ..utils.solver_spec import option_string_to_dict
 from .pdhg_chunk import (H100_SMEM_OPTIN, _dual_prox, _proj_box,
                          fused_chunk, operator_form, pick_route, smem_optin)
 
@@ -399,14 +402,17 @@ class PDHGSolver:
         self.restart_mode = str(restart_mode)
         self.restart_beta_sufficient = float(restart_beta_sufficient)
         self.restart_beta_necessary = float(restart_beta_necessary)
-        if float(compact_threshold) > 0.0:
-            raise not_ported("pdhg_compact_threshold (solve_compacted)", 3)
-        self.compact_threshold = 0.0
+        # active fraction below which solve_compacted gathers the
+        # survivors into a narrower slab; 0 disables compaction
+        self.compact_threshold = float(compact_threshold)
         # use_pallas / pallas_tile / pallas_interpret configure the TPU
         # kernel's tiling and are accepted for option compatibility
         # only: every inner chunk here goes through the CUDA kernel
-        # (or its twin on CPU tensors), whatever they say
-        self.use_pallas = use_pallas
+        # (or its twin on CPU tensors), whatever they say.  "auto"
+        # resolves as in the JAX package, so both packages key a config
+        # alike
+        self.use_pallas = False if use_pallas == "auto" \
+            else bool(use_pallas)
         self.pallas_tile = int(pallas_tile)
         self.pallas_interpret = bool(pallas_interpret)
         if hot_dtype in (None, "", "none", "off", "f64", "float64"):
@@ -423,10 +429,18 @@ class PDHGSolver:
     @classmethod
     def from_options(cls, options):
         """Build a solver from an SPBase-style options dict (the pdhg_*
-        keys), with the JAX package's names and defaults."""
-        if os.environ.get("MPISPPY_TPU_PDHG"):
-            raise not_ported("the MPISPPY_TPU_PDHG option overlay", 5)
+        keys), with the JAX package's names and defaults.
+
+        The MPISPPY_TPU_PDHG environment variable overlays the dict (the
+        variable wins): a space-separated key=value string of pdhg knobs
+        with or without the pdhg_ prefix, e.g.
+        ``MPISPPY_TPU_PDHG="restart_mode=fixed compact_threshold=0.25"``.
+        """
         o = dict(options or {})
+        env = os.environ.get("MPISPPY_TPU_PDHG")
+        if env:
+            for k, v in (option_string_to_dict(env) or {}).items():
+                o[k if k.startswith("pdhg_") else f"pdhg_{k}"] = v
         return cls(
             max_iters=int(o.get("pdhg_max_iters", 20000)),
             eps=float(o.get("pdhg_eps", 1e-6)),
@@ -445,7 +459,9 @@ class PDHGSolver:
             sparse_threshold=float(o.get("pdhg_sparse_threshold", 0.0)))
 
     def config_key(self):
-        """Hashable construction-time config (what `_solve_impl` reads)."""
+        """Hashable construction-time config (what `_solve_impl` reads,
+        and compact_threshold, so that configs with different
+        compaction policies never alias in caches keyed on it)."""
         return (self.max_iters, self.eps, self.check_every,
                 self.restart_every, self.omega0, self.use_pallas,
                 self.pallas_tile, self.pallas_interpret,
@@ -517,8 +533,110 @@ class PDHGSolver:
         return self._solve_impl(prep, c, qdiag, lb, ub, obj_const, x0, y0,
                                 consensus, eps, iters_cap)
 
-    def solve_compacted(self, *args, **kwargs):
-        raise not_ported("solve_compacted", 3)
+    def solve_compacted(self, prep: PreparedBatch, c, qdiag, lb, ub,
+                        obj_const=None, x0=None, y0=None, consensus=None,
+                        eps=None, probs=None, segment_iters=None,
+                        on_segment=None) -> SolveResult:
+        """`solve`, segmented on the host so that converged scenarios
+        stop paying for steps (ops/pdhg.py:696-815 of the JAX package).
+        Each segment runs `segment_iters` inner iterations through
+        `iters_cap` and reads the converged mask back; once the active
+        (unconverged, prob>0) fraction is at most `compact_threshold`
+        of the width, the survivors are gathered into the next smaller
+        power-of-two width (`width_bucket`) and the loop goes on over
+        the narrower slab, scattering results back into full-width
+        buffers.
+
+        Converged scenarios never re-enter a segment, so a scenario
+        frozen in the first segment is bit-identical to the uncompacted
+        solve's.  Survivors restart each segment from their own warm
+        iterate, with their restart average and omega re-seeded, so
+        they agree with the uncompacted solve only up to the KKT
+        tolerance.  A survivor slab is padded to its width by repeating
+        survivors; the duplicates are dropped at scatter time.
+
+        Falls back to `solve` when compaction is off (compact_threshold
+        0) or under a ConsensusSpec (consensus couples the batch).
+        `probs`: optional (S,) probabilities; prob-0 rows never count as
+        active.  `on_segment`: optional callback receiving a dict
+        (width, active, iters, seg_iters) after each segment."""
+        if self.compact_threshold <= 0.0 or consensus is not None:
+            return self.solve(prep, c, qdiag, lb, ub, obj_const=obj_const,
+                              x0=x0, y0=y0, consensus=consensus, eps=eps)
+        S, N = c.shape
+        M = prep.A.shape[1]
+        dev = c.device
+        if obj_const is None:
+            obj_const = torch.zeros((S,), dtype=c.dtype, device=dev)
+        if x0 is None:
+            x0 = torch.zeros((S, N), dtype=c.dtype, device=dev)
+        if y0 is None:
+            y0 = torch.zeros((S, M), dtype=c.dtype, device=dev)
+        seg = (int(segment_iters) if segment_iters
+               else self.check_every * self.restart_every)
+        seg = max(seg, self.check_every)
+
+        real = np.arange(S)
+        if probs is not None:
+            p = (probs.detach().cpu().numpy() if torch.is_tensor(probs)
+                 else np.asarray(probs)).reshape(-1)
+            real = real[p > 0]
+
+        bufs = None          # full-width result buffers (set by seg 1)
+        restarts = None
+        iters_done = 0
+        width = S
+        cur = None           # None = full width, else gathered indices
+        cur_n = S            # how many leading rows of `cur` are real
+        while True:
+            cap = min(seg, self.max_iters - iters_done)
+            if cap < self.check_every and bufs is not None:
+                break
+            if cur is None:
+                res = self.solve(prep, c, qdiag, lb, ub,
+                                 obj_const=obj_const, x0=x0, y0=y0,
+                                 eps=eps, iters_cap=cap)
+            else:
+                ii = torch.as_tensor(cur, dtype=torch.long, device=dev)
+                res = self.solve(
+                    _gather_prep(prep, ii), c[ii], qdiag[ii], lb[ii],
+                    ub[ii], obj_const=obj_const[ii], x0=bufs["x"][ii],
+                    y0=bufs["y"][ii], eps=eps, iters_cap=cap)
+            iters_done += int(res.iters)
+            if bufs is None:
+                bufs = {f: getattr(res, f) for f in _COMPACT_FIELDS}
+                restarts = res.restarts
+            else:
+                ri = torch.as_tensor(cur[:cur_n], dtype=torch.long,
+                                     device=dev)
+                for f in bufs:
+                    bufs[f] = bufs[f].index_copy(
+                        0, ri, getattr(res, f)[:cur_n])
+                restarts = restarts.index_add(0, ri, res.restarts[:cur_n])
+
+            conv = bufs["converged"].cpu().numpy()
+            act = real[~conv[real]]
+            if on_segment is not None:
+                on_segment({"width": int(width), "active": int(act.size),
+                            "iters": iters_done,
+                            "seg_iters": int(res.iters)})
+            if act.size == 0 or iters_done >= self.max_iters:
+                break
+            target = width_bucket(act.size)
+            if target < width and act.size <= self.compact_threshold * width:
+                width = target
+            # survivors only: converged rows stay frozen in `bufs`; the
+            # slab is padded to its width by repeating survivors
+            cur = np.resize(act, width)
+            cur[:act.size] = act
+            cur_n = int(act.size)
+
+        return SolveResult(
+            x=bufs["x"], y=bufs["y"], obj=bufs["obj"],
+            dual_obj=bufs["dual_obj"], pres=bufs["pres"],
+            dres=bufs["dres"], gap=bufs["gap"],
+            converged=bufs["converged"], iters=iters_done,
+            restarts=restarts)
 
     # -- impl --------------------------------------------------------
     def _solve_impl(self, prep, c, qdiag, lb, ub, obj_const, x0, y0,
@@ -732,6 +850,19 @@ class PDHGSolver:
             converged=converged | ((pres < eps_out) & (dres < eps_out)
                                    & (gap < eps_out)),
             iters=k * ne, restarts=restarts)
+
+
+# the SolveResult fields solve_compacted scatters back per segment
+_COMPACT_FIELDS = ("x", "y", "obj", "dual_obj", "pres", "dres", "gap",
+                   "converged")
+
+
+def width_bucket(n, floor=1):
+    """Next power of two >= max(n, floor): the width of a compacted
+    slab (the JAX package's serve/compile_cache.width_bucket).  Powers
+    of two bound the distinct widths a solve launches at to log2(S)."""
+    n = max(int(n), int(floor), 1)
+    return 1 << (n - 1).bit_length()
 
 
 #: inner iteration chunks run on the matmul route in this process

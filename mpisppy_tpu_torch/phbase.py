@@ -15,11 +15,16 @@ CUDA chunk kernel.
 When a hub (`cylinders/hub.py`) drives the loop, `iterk_loop` calls
 its `sync()` after every iteration and stops when `is_converged()`.
 
+Telemetry (`options["telemetry"]`, `telemetry/`): each PH iteration is
+a `ph.iteration` span with its counters, and with `phase_timing` the
+superstep runs as four timed cuts (solve / x̄ / W update / conv), each
+a `ph.phase.*` span with a device sync after it.  With telemetry off
+the superstep is the plain call with one sync.
+
 Not ported yet (ROADMAP queue A): run checkpoints (`run_checkpoint`,
-`resume_from`), chaos injection, telemetry and phase timing,
-`ph_converger`, `reshard` and `variable_probability`.  Options that
-would select them raise NotImplementedError
-(spbase._UNPORTED_OPTIONS).
+`resume_from`), chaos injection, `ph_converger`, `reshard` and
+`variable_probability`.  Options that would select them raise
+NotImplementedError (spbase._UNPORTED_OPTIONS).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from . import global_toc
-from .ir import ScenarioBatch, node_segment_sum
+from .ir import ScenarioBatch, SparseSplitA, node_segment_sum
 from .ops.pdhg import round_to_dtype
 from .spopt import SPOpt, _sync
 
@@ -115,24 +120,37 @@ def convergence_metric(batch: ScenarioBatch, x_na, xbar):
     return torch.sum(batch.prob * per_scen)
 
 
+def _superstep_solve(solver, state, rho, W_on, prox_on, lb, ub, eps,
+                     prep, batch):
+    """The solve cut of the superstep: PH's objective, one batched
+    solve warm-started from the last iterate."""
+    c_eff, q_eff = ph_objective_arrays(
+        batch, state.W, rho, state.xbar, W_on=W_on, prox_on=prox_on)
+    return solver._solve_impl(prep, c_eff, q_eff, lb, ub, batch.obj_const,
+                              state.x, state.y, None, eps)
+
+
+def _next_state(state, res, W, xbar, xsqbar, conv, obj, batch):
+    return PHState(
+        x=res.x, y=res.y, W=W, xbar=xbar, xsqbar=xsqbar, obj=obj,
+        dual_obj=res.dual_obj, conv=conv, it=state.it + 1,
+        solve_iters=res.iters,
+        active_frac=_active_fraction(batch, res.converged),
+        solve_restarts=torch.sum(res.restarts))
+
+
 def ph_superstep(solver, state: PHState, rho, W_on, prox_on,
                  lb, ub, eps, prep, batch):
     """One PH iteration as a function of its inputs: solve -> xbar
     consensus -> W update -> convergence metric."""
-    c_eff, q_eff = ph_objective_arrays(
-        batch, state.W, rho, state.xbar, W_on=W_on, prox_on=prox_on)
-    res = solver._solve_impl(prep, c_eff, q_eff, lb, ub, batch.obj_const,
-                             state.x, state.y, None, eps)
+    res = _superstep_solve(solver, state, rho, W_on, prox_on, lb, ub, eps,
+                           prep, batch)
     x_na = batch.nonants(res.x)
     xbar, xsqbar = compute_xbar(batch, x_na)
     W = update_W(state.W, rho, x_na, xbar)
     conv = convergence_metric(batch, x_na, xbar)
-    return PHState(
-        x=res.x, y=res.y, W=W, xbar=xbar, xsqbar=xsqbar,
-        obj=batch.objective(res.x), dual_obj=res.dual_obj, conv=conv,
-        it=state.it + 1, solve_iters=res.iters,
-        active_frac=_active_fraction(batch, res.converged),
-        solve_restarts=torch.sum(res.restarts))
+    return _next_state(state, res, W, xbar, xsqbar, conv,
+                       batch.objective(res.x), batch)
 
 
 class PHBase(SPOpt):
@@ -266,6 +284,9 @@ class PHBase(SPOpt):
         self.conv = float(conv)
         global_toc(f"Iter0 trivial bound = {self.trivial_bound:.6g}, "
                    f"conv = {self.conv:.6g}")
+        if self._tel.enabled:
+            self._tel.event("ph.iter0", trivial_bound=self.trivial_bound,
+                            feas_mass=self.iter0_feas_mass, conv=self.conv)
         self._ext("post_iter0")
         return self.trivial_bound
 
@@ -284,28 +305,77 @@ class PHBase(SPOpt):
     def _run_superstep(self):
         """Advance self.state by one superstep; a hot-dtype run promotes
         to the full-precision pair once the superstep tolerance crosses
-        the hot dtype's eps floor."""
+        the hot dtype's eps floor.  Telemetry phase timing routes
+        through the phased path; otherwise this is the plain call with
+        one device sync (telemetry off costs an attribute read)."""
         eps = self.superstep_eps
         solver, prep = self.active_solver_prep(eps)
-        self.state = ph_superstep(
-            solver, self.state, self.rho, self.W_on, self.prox_on,
-            self.lb_eff, self.ub_eff, eps, prep, self.batch)
-        _sync(self.state.x)
+        if self._tel.phase_timing:
+            self._superstep_phased(solver, prep, eps)
+        else:
+            self.state = ph_superstep(
+                solver, self.state, self.rho, self.W_on, self.prox_on,
+                self.lb_eff, self.ub_eff, eps, prep, self.batch)
+            _sync(self.state.x)
         if solver is not self.solver:
             self.state = dataclasses.replace(self.state, promoted=1)
+
+    def _superstep_phased(self, solver, prep, eps):
+        """One PH iteration as `ph_superstep`'s four cuts (solve / x̄
+        psum / W update / conv), each in a ph.phase.* span with a device
+        sync after it and a ph.phase.*_seconds histogram
+        (phbase.py:590-631 of the JAX package).  The same torch ops in
+        the same order as `ph_superstep`, so the same PHState; the three
+        extra syncs are why this path runs only behind
+        tel.phase_timing."""
+        tel, st, b = self._tel, self.state, self.batch
+        t0 = time.monotonic()
+        with tel.span("ph.phase.solve"):
+            res = _superstep_solve(solver, st, self.rho, self.W_on,
+                                   self.prox_on, self.lb_eff, self.ub_eff,
+                                   eps, prep, b)
+            _sync(res.x)
+        t1 = time.monotonic()
+        with tel.span("ph.phase.psum"):
+            x_na = b.nonants(res.x)
+            xbar, xsqbar = compute_xbar(b, x_na)
+            _sync(xbar)
+        t2 = time.monotonic()
+        with tel.span("ph.phase.w_update"):
+            W = update_W(st.W, self.rho, x_na, xbar)
+            _sync(W)
+        t3 = time.monotonic()
+        with tel.span("ph.phase.conv"):
+            conv = convergence_metric(b, x_na, xbar)
+            obj = b.objective(res.x)
+            _sync(conv)
+        t4 = time.monotonic()
+        hist = tel.registry.histogram
+        hist("ph.phase.solve_seconds").observe(t1 - t0)
+        hist("ph.phase.psum_seconds").observe(t2 - t1)
+        hist("ph.phase.w_update_seconds").observe(t3 - t2)
+        hist("ph.phase.conv_seconds").observe(t4 - t3)
+        self.state = _next_state(st, res, W, xbar, xsqbar, conv, obj, b)
 
     def ph_iteration(self):
         self._ext("pre_solve_loop")
         t0 = time.time()
-        self._run_superstep()
+        tel = self._tel
+        if tel.enabled:
+            with tel.span("ph.iteration"):
+                self._run_superstep()
+        else:
+            self._run_superstep()
         it_n = int(self.state.solve_iters)
+        rst_n = int(self.state.solve_restarts)
         # FLOPs discounted by the shared block's density, and the
         # sparse-matvec count (phbase.py:645-653)
         self._account(self.prep, it_n)
         self._kernel_iters += it_n
-        self._restarts_total += int(self.state.solve_restarts)
+        self._restarts_total += rst_n
         self._active_fraction = float(self.state.active_frac)
-        self._solve_wall += time.time() - t0
+        wall = time.time() - t0
+        self._solve_wall += wall
         self._ext("post_solve_loop")
         self.conv = float(self.state.conv)
         if self._ladder is not None:
@@ -314,6 +384,18 @@ class PHBase(SPOpt):
                 self._ladder_eps,
                 max(self._ladder["min"],
                     self._ladder["couple"] * self.conv))
+        if tel.enabled:
+            r = tel.registry
+            r.counter("ph.iterations").inc()
+            r.histogram("ph.iteration_seconds").observe(wall)
+            r.gauge("ph.conv").set(self.conv)
+            r.counter("pdhg.inner_iters_total").inc(it_n)
+            r.counter("pdhg.restarts_total").inc(rst_n)
+            r.gauge("pdhg.active_fraction").set(self._active_fraction)
+            if isinstance(self.prep.A, SparseSplitA):
+                r.counter("pdhg.sparse_matvecs").inc(2 * it_n)
+            if self._ladder is not None:
+                r.gauge("ph.superstep_eps").set(self._ladder_eps)
         return self.conv
 
     # -- main loop (reference phbase.py:875-979 iterk_loop) ---------------
@@ -384,6 +466,7 @@ class PHBase(SPOpt):
         a Lagrangian value at any iterate); otherwise uncertified
         scenarios are masked to -inf.  `eps` (or options
         "lagrangian_eps") loosens this solve alone."""
+        self._tel.counter("ph.lagrangian_bound_calls").inc()
         b = self.batch
         W = self.state.W if W is None else W
         c_eff = b.c.clone()

@@ -19,17 +19,23 @@ Dict schema (that of the JAX package and the `utils/vanilla` factories):
     spoke_dict = {"spoke_class": ..., "spoke_kwargs": {"options": ...},
                   "opt_class": ...,   "opt_kwargs": {...}}
 
+With telemetry on, each spoke records on its own trace row
+("spoke<i>:<class>"), and a telemetry `dir` receives trace.json (hub
+and spokes merged on one timeline) and metrics.jsonl after the spin.
+
 Not ported yet (ROADMAP.md queue A): `mode="multiproc"` and the native
-window (item 11), `resume_from` (item 6), the "device" / "collective"
-exchange backends and `MPMDWheel` (item 13), and telemetry output
-(item 8).  Each raises where selected.
+window (item 11), with the per-process telemetry files it merges,
+`resume_from` (item 6), and the "device" / "collective" exchange
+backends and `MPMDWheel` (item 13).  Each raises where selected.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 from . import global_toc, not_ported
+from . import telemetry as _telemetry
 from .cylinders.spcommunicator import _UNPORTED_BACKENDS
 from .device import host
 from .ir import SplitA
@@ -93,8 +99,12 @@ class WheelSpinner:
                          or not isinstance(hub_opt.prep.A, SplitA))):
                 kw.setdefault("prep", hub_opt.prep)
             sp_opt = sd["opt_class"](**kw)
-            spokes.append(sd["spoke_class"](
-                sp_opt, options=sd.get("spoke_kwargs", {}).get("options")))
+            spoke = sd["spoke_class"](
+                sp_opt, options=sd.get("spoke_kwargs", {}).get("options"))
+            # each spoke gets its own row of the merged trace
+            spoke.telemetry_track = (
+                f"spoke{len(spokes)}:{type(spoke).__name__}")
+            spokes.append(spoke)
 
         hub_options = dict(hd.get("hub_kwargs", {}).get("options") or {})
         # on one device "auto" (and "seqlock") resolve to the host
@@ -124,7 +134,18 @@ class WheelSpinner:
                 hub.finalize_failures.append((type(sp).__name__, str(e)))
                 global_toc(f"spoke finalize failed: {e}")
         hub.hub_finalize()
+        self._flush_telemetry()
         return self
+
+    def _flush_telemetry(self):
+        """Write trace.json (hub and spoke rows merged on one timeline)
+        and metrics.jsonl into the configured telemetry dir; a no-op
+        when telemetry is off or has no dir."""
+        tel = getattr(self.spcomm, "telemetry", None) or _telemetry.get()
+        path = tel.flush()
+        if path is not None:
+            global_toc(f"WheelSpinner: telemetry written to "
+                       f"{os.path.dirname(path)}")
 
     @staticmethod
     def _spin_threads(hub, spokes):

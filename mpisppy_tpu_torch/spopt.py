@@ -17,6 +17,13 @@ subclass sets `_shared_cols` (the extensive form).
 `evaluate_candidates` screens k candidates in one solve over the xhat
 system tiled k-fold along the scenario axis.
 
+With `pdhg_compact_threshold` > 0, an uncapped `solve_loop` (Iter0,
+the Lagrangian bound) goes through `PDHGSolver.solve_compacted`,
+and `pdhg_stats()` reports the segment trajectory and the FLOPs the
+narrower slabs did not spend.  `options["telemetry"]` configures the
+process-global telemetry handle (`telemetry/`): solve spans, solve and
+certify counters, the PDHG work counters and the MFU gauges.
+
 Differences from the JAX package, each on purpose:
 * `_certified_resolve` runs its float64 re-solve on the batch's own
   device — the CUDA kernel has a float64 entry point and the matmul
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from . import global_toc
+from . import telemetry as _telemetry
 from .ir import (SparseSplitA, SplitA, bmatvec, delta_idx, shared_density,
                  sparsify_split)
 from .ops import pdhg as _pdhg
@@ -81,7 +89,13 @@ class SPOpt(SPBase):
         self._kernel_iters = 0
         self._restarts_total = 0
         self._active_fraction = 1.0
+        self._flops_saved = 0.0     # FLOPs compaction did not spend
+        self._active_traj = []      # the last compacted solve's segments
         self._promotions = 0
+        # the options value configures the process-global handle; with
+        # telemetry off every instrument below is a null no-op
+        self._tel = _telemetry.configure_from_options(
+            self.options.get("telemetry"))
         # dynamic solver tolerance, rounded to the batch dtype
         self.solver_eps = round_to_dtype(self.solver.eps,
                                          self.batch.c.dtype)
@@ -161,6 +175,8 @@ class SPOpt(SPBase):
             return self.solver, self.prep
         if count:
             self._promotions += 1
+            if self._tel.enabled:
+                self._tel.registry.counter("pdhg.promotions").inc()
         return self._promoted_pair()
 
     # -- hot path ---------------------------------------------------------
@@ -173,30 +189,57 @@ class SPOpt(SPBase):
         warm: True/False for the default warm-start cache, or a string
         tag for a named cache.  certify: False, True (refine every
         unconverged prob>0 scenario in float64) or "feas" (refine only
-        primal-infeasible ones).  Returns the ops.pdhg.SolveResult."""
+        primal-infeasible ones).  An uncapped solve goes through
+        `solve_compacted` when the solver's compact_threshold is set.
+        Returns the ops.pdhg.SolveResult."""
         b = self.batch
         t0 = time.time()
+        tel = self._tel
+        tn0 = time.monotonic_ns() if tel.enabled else 0
         if isinstance(warm, str):
             cache = self._named_warm.get(warm, (None, None))
         else:
             cache = (self._x_warm, self._y_warm) if warm else (None, None)
         eps_arg = self.solver_eps if eps is None else eps
         solver, prep = self.active_solver_prep(eps_arg)
-        res = solver.solve(prep,
-                           b.c if c is None else c,
-                           b.qdiag if qdiag is None else qdiag,
-                           b.lb if lb is None else lb,
-                           b.ub if ub is None else ub,
-                           obj_const=b.obj_const, x0=cache[0],
-                           y0=cache[1], eps=eps_arg, iters_cap=iters_cap)
-        live = b.prob > 0
-        self._active_fraction = float(
-            torch.sum(~res.converged & live)
-            / max(int(torch.sum(live)), 1))
+        args = (prep,
+                b.c if c is None else c,
+                b.qdiag if qdiag is None else qdiag,
+                b.lb if lb is None else lb,
+                b.ub if ub is None else ub)
+        kw = dict(obj_const=b.obj_const, x0=cache[0], y0=cache[1],
+                  eps=eps_arg)
+        n_live = max(int(torch.sum(b.prob > 0)), 1)
+        # compaction applies to uncapped solves only: an iters_cap
+        # caller is screening and owns its budget
+        if solver.compact_threshold > 0.0 and iters_cap is None:
+            traj = []
+            res = solver.solve_compacted(*args, **kw, probs=b.prob,
+                                         on_segment=traj.append)
+            self._active_traj = traj
+            self._active_fraction = (traj[-1]["active"] / n_live
+                                     if traj else 0.0)
+            # FLOPs the compacted segments did not spend on the rows
+            # the full-width solve would have carried
+            dens = self._prep_density(prep)
+            saved = sum(
+                _mfu.pdhg_flops(t["seg_iters"], b.num_scens - t["width"],
+                                b.num_rows, b.num_vars,
+                                solver.check_every, density=dens)
+                for t in traj if t["width"] < b.num_scens)
+            self._flops_saved += saved
+        else:
+            res = solver.solve(*args, **kw, iters_cap=iters_cap)
+            saved = 0.0
+            self._active_fraction = float(
+                torch.sum(~res.converged & (b.prob > 0))) / n_live
         it_n = int(res.iters)
+        rst_n = int(torch.sum(res.restarts))
+        # net of the compaction savings: `saved` is work not done
         self._account(prep, it_n)
+        self._flops -= saved
         self._kernel_iters += it_n
-        self._restarts_total += int(torch.sum(res.restarts))
+        self._restarts_total += rst_n
         if certify:
             select = None
             if certify == "feas":
@@ -211,12 +254,43 @@ class SPOpt(SPBase):
         _sync(res.x)
         dt = time.time() - t0
         self._solve_wall += dt
+        if tel.enabled:
+            self._record_solve(prep, it_n, rst_n, saved, dt, tn0, n_live)
         if dtiming or self.options.get("display_timing"):
             self._solve_times.append(dt)
             global_toc(f"solve_loop: {dt*1e3:8.1f} ms, iters={it_n}, "
                        f"conv={int(torch.sum(res.converged))}"
                        f"/{b.num_scens}")
         return res
+
+    def _record_solve(self, prep, it_n, rst_n, saved, dt, tn0, n_live):
+        """The telemetry of one solve_loop call (telemetry on only)."""
+        tel, b = self._tel, self.batch
+        tel.tracer.record_span("solve.loop", tn0, time.monotonic_ns())
+        r = tel.registry
+        r.counter("solve.calls").inc()
+        r.counter("solve.kernel_iters").inc(it_n)
+        r.histogram("solve.seconds").observe(dt)
+        r.counter("pdhg.inner_iters_total").inc(it_n)
+        r.counter("pdhg.restarts_total").inc(rst_n)
+        r.gauge("pdhg.active_fraction").set(self._active_fraction)
+        r.gauge("pdhg.active_scenarios").set(self._active_fraction
+                                             * n_live)
+        if saved:
+            r.counter("pdhg.flops_saved").inc(saved)
+        if isinstance(prep.A, SparseSplitA):
+            r.counter("pdhg.sparse_matvecs").inc(2 * it_n)
+        if rst_n:
+            # mean restart cycle length in inner iterations: the
+            # iterate-steps of the batch over the cycles they split into
+            r.event("pdhg.restart", count=rst_n,
+                    mean_cycle=it_n * b.num_scens / max(
+                        rst_n + b.num_scens, 1),
+                    iters=it_n)
+        _mfu.record_to_registry(r, self._flops, self._solve_wall,
+                                kernel_iters=self._kernel_iters,
+                                device=self.device,
+                                dtype=self._kernel_dtype())
 
     # -- certified fallback ----------------------------------------------
     def _certified_resolve(self, res, c=None, qdiag=None, lb=None,
@@ -277,7 +351,13 @@ class SPOpt(SPBase):
             x0=res.x.to(f64)[idx], y0=res.y.to(f64)[idx],
             eps=float(self.solver_eps))
         self._account(prep64, int(r64.iters), S=idx.numel())
-        self._certify_wall += time.time() - t_cert
+        dt_cert = time.time() - t_cert
+        self._certify_wall += dt_cert
+        if self._tel.enabled:
+            r = self._tel.registry
+            r.counter("solve.certify_calls").inc()
+            r.counter("solve.certify_scenarios").inc(int(idx.numel()))
+            r.histogram("solve.certify_seconds").observe(dt_cert)
         n_ok = int(torch.sum(r64.converged))
         if n_ok < idx.numel():
             global_toc(f"WARNING: f64 fallback left {idx.numel() - n_ok} "
@@ -327,6 +407,8 @@ class SPOpt(SPBase):
         self._kernel_iters = 0
         self._solve_times = []
         self._restarts_total = 0
+        self._flops_saved = 0.0
+        self._active_traj = []
         self._active_fraction = 1.0
         self._promotions = 0
         self._sparse_matvecs = 0
@@ -347,7 +429,9 @@ class SPOpt(SPBase):
             "consensus_chunks": int(_pdhg.consensus_chunks),
             "inner_iters": int(self._kernel_iters),
             "restarts_total": int(self._restarts_total),
+            "flops_saved": float(self._flops_saved),
             "active_fraction_final": float(self._active_fraction),
+            "active_fraction_traj": list(self._active_traj),
             "hot_dtype": self.solver.hot_dtype,
             "promotions_total": int(self._promotions),
             "sparse_matvecs": int(self._sparse_matvecs),
@@ -355,16 +439,24 @@ class SPOpt(SPBase):
         }
 
     def solve_stats(self):
-        """Accumulated kernel FLOPs and wall-clock across solve_loop
-        calls, with the device they ran on."""
+        """Accumulated kernel FLOPs, wall-clock and MFU across solve_loop
+        calls, with the device they ran on (utils/mfu.py: the peak is
+        the card's, at the dtype the hot-loop matvecs run in)."""
         dev = self.device
         name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
+        dt = self._kernel_dtype()
+        u = _mfu.mfu(self._flops, self._solve_wall, dev, dtype=dt)
+        _mfu.record_to_registry(self._tel.registry, self._flops,
+                                self._solve_wall,
+                                kernel_iters=self._kernel_iters,
+                                device=dev, dtype=dt)
         return {
             "flops": self._flops,
             "solve_wall_s": self._solve_wall,
             "certify_wall_s": self._certify_wall,
-            "dtype": self._kernel_dtype(),
+            "mfu": u,
+            "dtype": dt,
             "device": name,
         }
 

@@ -12,8 +12,9 @@ item 9); on the CPU put `device="cpu"` into the returned dicts'
 Not ported yet, each raising where selected: `aph_hub`,
 `lshaped_hub`, `fwph_spoke`, `xhatlshaped_spoke` (item 10); the
 extension adders `add_fixer`, `add_norm_rho`, `add_multi_rho`,
-`add_wtracker` and `extension_adder` (item 7); per-cylinder
-`{root}_solver_*` options (item 5, `utils/solver_spec.py`).
+`add_wtracker` and `extension_adder` (item 7).  Each spoke factory
+resolves its own `{root}_solver_*` options through
+`utils/solver_spec.py`.
 """
 
 from __future__ import annotations

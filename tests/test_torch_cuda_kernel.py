@@ -421,3 +421,91 @@ def test_farmer_wheel_on_card(cuda, monkeypatch, mode):
     assert np.isfinite(ws.BestOuterBound) and np.isfinite(ws.BestInnerBound)
     assert ws.BestOuterBound <= opt + tol
     assert ws.BestInnerBound >= opt - tol
+
+
+@pytest.mark.parametrize("form", ["dense", "split"])
+def test_kernel_on_a_compacted_slab(cuda, form):
+    """The dense and split forms on a prep gathered to 5 of 16 farmer
+    scenarios (`ops.pdhg._gather_prep`, as `solve_compacted` gathers its
+    survivors): the kernel matches its plain version, and the gathered
+    SplitA keeps the full prep's shared block and a contiguous (5, nnz)
+    block of values."""
+    b = farmer.build_batch(16, crops_multiplier=2, device=cuda)
+    if form == "split":
+        prep = pdhg.prepare_batch_split(b.A, *b.model_meta["A_delta_idx"],
+                                        b.row_lo, b.row_hi)
+    else:
+        prep = prepare_batch(b.A, b.row_lo, b.row_hi)
+    ii = torch.tensor([0, 3, 7, 8, 15], device=cuda)
+    g = pdhg._gather_prep(prep, ii)
+    if form == "split":
+        assert g.A.shared is prep.A.shared
+        assert tuple(g.A.vals.shape) == (5, prep.A.vals.shape[1])
+        assert g.A.vals.is_contiguous()
+    dc = g.d_col
+    qs = (b.qdiag[ii] * dc * dc).contiguous()
+    lbs = (b.lb[ii] / dc).contiguous()
+    ubs = torch.where(torch.isfinite(b.ub[ii]), b.ub[ii] / dc,
+                      b.ub[ii]).contiguous()
+    x = torch.clamp(0.5 * (lbs + torch.clamp(ubs, max=1e3)), min=0.0)
+    y = torch.zeros_like(g.row_lo)
+    tau = (0.9 / (g.anorm + 0.9 * qs.amax(dim=1))).contiguous()
+    sigma = (0.9 / g.anorm).expand(tau.shape).contiguous()
+    args = ((b.c[ii] * dc).contiguous(), qs, lbs, ubs, g.row_lo.contiguous(),
+            g.row_hi.contiguous(), x.contiguous(), y, tau, sigma, 40)
+    A = g.A.contiguous()
+    n0 = pdhg_chunk.launch_shapes[(form, 5, b.num_rows, b.num_vars,
+                                   "float64")]
+    got = fused_chunk(A, *args)
+    assert pdhg_chunk.launch_shapes[(form, 5, b.num_rows, b.num_vars,
+                                     "float64")] == n0 + 1
+    _assert_matches(got, pdhg_chunk.REFERENCE[form](A, *args),
+                    torch.float64)
+
+
+def test_farmer_wheel_with_telemetry_on_card(cuda, tmp_path):
+    """An interleaved farmer-3 wheel with telemetry into a dir on the
+    card: no spoke fails in a step or in its final pass, and trace.json
+    has one row each for the hub and the two spokes."""
+    import json
+
+    from mpisppy_tpu_torch import telemetry
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.cylinders.lagrangian_bounder import (
+        LagrangianOuterBound)
+    from mpisppy_tpu_torch.cylinders.xhatshufflelooper_bounder import (
+        XhatShuffleInnerBound)
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
+    names = farmer.scenario_names_creator(3)
+    opts = {"defaultPHrho": 1.0, "PHIterLimit": 10, "convthresh": 0.0,
+            "pdhg_eps": 1e-7, "pdhg_max_iters": 20000,
+            "telemetry": {"dir": str(tmp_path)}}
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": 1e-4, "abs_gap": 1.0}},
+           "opt_class": PH,
+           "opt_kwargs": {"options": dict(opts), "all_scenario_names": names,
+                          "batch": farmer.build_batch(3, device=cuda)}}
+    spokes = [{"spoke_class": cls, "spoke_kwargs": {"options": {}},
+               "opt_class": ocls,
+               "opt_kwargs": {"options": dict(opts),
+                              "all_scenario_names": names}}
+              for cls, ocls in ((LagrangianOuterBound, PH),
+                                (XhatShuffleInnerBound, Xhat_Eval))]
+    telemetry.reset()
+    try:
+        ws = WheelSpinner(hub, spokes).spin()
+        traffic = telemetry.traffic_counters()
+    finally:
+        telemetry.reset()
+    assert ws.spcomm.failed_spokes == []
+    assert ws.spcomm.finalize_failures == []
+    evs = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    rows = sorted(e["args"]["name"] for e in evs if e["ph"] == "M")
+    assert rows == ["hub", "spoke0:LagrangianOuterBound",
+                    "spoke1:XhatShuffleInnerBound"]
+    assert traffic["window_writes"] > 0 and traffic["window_reads"] > 0
+    snap = json.loads((tmp_path / "metrics.jsonl").read_text()
+                      .splitlines()[-1])
+    assert snap["histograms"]["ph.phase.solve_seconds"]["count"] > 0

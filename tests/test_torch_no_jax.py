@@ -6,8 +6,9 @@
   check is on whole module components, not on a prefix).
 * A fresh interpreter runs the port's farmer PH and a farmer-3
   interleaved wheel (PH hub, Lagrangian and XhatShuffle spokes, built
-  through `utils/config` and `utils/vanilla`) on the CPU and finds no
-  `jax` and no `mpisppy_tpu.*` module loaded.
+  through `utils/config` and `utils/vanilla`) on the CPU, with telemetry
+  into a dir (`telemetry/`, `log.py`) and converged-scenario compaction
+  on, and finds no `jax` and no `mpisppy_tpu.*` module loaded.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
 
@@ -46,8 +47,11 @@ def test_ast_no_jax_or_jax_package_imports():
     scanned = {p.relative_to(ROOT).parts[1] for p in files
                if p.parent != ROOT}
     assert {"cylinders", "resilience", "utils", "ops", "opt",
-            "models"} <= scanned
+            "models", "telemetry"} <= scanned
     assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
+    assert ROOT / "mpisppy_tpu_torch" / "log.py" in files
+    assert {p.name for p in files if p.parent.name == "telemetry"} == {
+        "__init__.py", "metrics.py", "tracer.py", "export.py"}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -65,17 +69,22 @@ def test_ast_no_jax_or_jax_package_imports():
 
 
 _DRIVE = """
-import json, sys
-from mpisppy_tpu_torch import disable_tictoc_output
+import json, os, sys, tempfile
+from mpisppy_tpu_torch import disable_tictoc_output, telemetry
+from mpisppy_tpu_torch.log import global_toc_logger
 from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.opt.ph import PH
 disable_tictoc_output()
+tdir = tempfile.mkdtemp()
+global_toc_logger(out=os.path.join(tdir, "toc.log"))
 ph = PH({"defaultPHrho": 1.0, "PHIterLimit": 5, "convthresh": 0.0,
-         "pdhg_eps": 1e-6}, ["s0", "s1", "s2"],
+         "pdhg_eps": 1e-6, "pdhg_compact_threshold": 0.9,
+         "telemetry": {"dir": tdir}}, ["s0", "s1", "s2"],
         batch=farmer.build_batch(3, device="cpu"), device="cpu")
 conv, eobj, triv = ph.ph_main()
 ph.evaluate_xhat(ph.root_xbar())
 ph.lagrangian_bound()
+traj = ph.pdhg_stats()["active_fraction_traj"]
 
 from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
 from mpisppy_tpu_torch.utils import config, vanilla
@@ -93,7 +102,12 @@ hub = vanilla.ph_hub(cfg, farmer.scenario_creator, None, names, batch=b)
 hub["opt_kwargs"]["device"] = "cpu"
 spokes = vanilla.build_spokes(cfg, farmer.scenario_creator, None, names,
                               batch=b)
+for d in [hub] + spokes:
+    d["opt_kwargs"]["options"]["telemetry"] = {"dir": tdir}
 ws = WheelSpinner(hub, spokes).spin()
+with open(os.path.join(tdir, "trace.json")) as f:
+    rows = [e["args"]["name"] for e in json.load(f)["traceEvents"]
+            if e["ph"] == "M"]
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mpisppy_tpu"))
 wheel = sorted(m for m in sys.modules
@@ -101,7 +115,9 @@ wheel = sorted(m for m in sys.modules
                                 "mpisppy_tpu_torch.resilience.",
                                 "mpisppy_tpu_torch.utils.")))
 print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
-                  "bounds": [ws.BestOuterBound, ws.BestInnerBound]}))
+                  "bounds": [ws.BestOuterBound, ws.BestInnerBound],
+                  "traj": traj, "rows": rows,
+                  "traffic": telemetry.traffic_counters()}))
 """
 
 
@@ -117,6 +133,9 @@ def test_fresh_interpreter_port_run_loads_no_jax():
             "mpisppy_tpu_torch.utils.vanilla"} <= set(res["wheel"])
     outer, inner = res["bounds"]
     assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner
+    assert res["traj"] and res["traj"][-1]["active"] == 0
+    assert len(res["rows"]) == 3 and "hub" in res["rows"]
+    assert res["traffic"]["window_writes"] > 0
 
 
 def test_no_silent_cpu_without_cuda(monkeypatch):
@@ -135,10 +154,12 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
 
 def test_unported_options_refuse():
     b = farmer.build_batch(3, device="cpu")
-    for key in ("resume_from", "run_checkpoint", "chaos", "telemetry",
-                "ph_converger"):
+    for key in ("resume_from", "run_checkpoint", "chaos", "ph_converger"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PH({key: "x"}, ["s0", "s1", "s2"], batch=b, device="cpu")
+    # telemetry is ported: the option configures the handle
+    assert PH({"telemetry": "on"}, ["s0", "s1", "s2"], batch=b,
+              device="cpu")._tel.enabled
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PH({}, ["s0", "s1", "s2"], batch=b, device="cpu",
            variable_probability=np.ones((3, 3)))
