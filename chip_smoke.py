@@ -85,9 +85,28 @@ with compaction beside the true_size phase's.  In the wheel phase,
 `wheel_row_telemetry` spins wheel_row again with its own telemetry
 option into WHEEL_TELEMETRY_DIR: trace.json with one row each for the
 hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
-Then the kernels line (each entry with its launches in `wheel_split`
-and in the compact phase, and the dense and split forms with their
-compacted-slab run), the nvidia-smi line, and the result line.
+
+ 12. driver   the driver layer (`utils/amalgamator`, `extensions/`,
+              `convergers/`).  `driver_cylinders`:
+              examples/farmer_cylinders.py's command line with its
+              extension flags (--fixer --farmer-with-integers
+              --use-norm-rho-updater --wtracker --primal-dual-converger,
+              Lagrangian and XhatShuffle spokes) through
+              amalgamator.from_module at the split cell's size, f32,
+              PHIterLimit cut to DRIVER_PH_ITERS: bounds, hook counts,
+              pinned slots held at their values, rho changed where
+              NormRhoUpdater's rule says, launches by form, seconds per
+              superstep beside wheel_split's and each extension's hook
+              seconds per iteration.  `driver_hub`: PH alone on the same
+              batch with the in-hub XhatClosest, the Gapper and
+              MultRhoUpdater (the Gapper's eps schedule, the in-hub
+              xhat's shared-form launches).  `driver_ef`: --EF through
+              the amalgamator on the wheel_row batch, f64, within 1e-6 of
+              HiGHS.
+Then the kernels line (each entry with its launches in `wheel_split`,
+in the driver phase's cylinders run and in the compact phase, and the
+dense and split forms with their compacted-slab run), the nvidia-smi
+line, and the result line.
 
 Imports nothing of jax and nothing of the JAX package (scipy only for
 the HiGHS reference of the sslp phase).  Exits non-zero,
@@ -112,12 +131,15 @@ S, CM, N_STEPS = 1000, 10, 40
 PH_ITERS = 4
 BF16X_PH_ITERS = 2
 # the true-size instance (bench.py:1229-1243): S=1000 scenarios at
-# crops_multiplier=1000, split-native.  S is cut to 125 so that the
-# script ends within half its time limit: on an NVIDIA H100 80GB HBM3 at
-# 700 W, Iter0 alone took 719 s at S=1000 (f32 to its 30,000-iteration
-# cap, then the f64 certify of its stragglers) and the phase 469 s at
-# S=250.  crops_multiplier, pdhg_eps and pdhg_max_iters stay the bench's.
-TRUE_S, TRUE_CM, TRUE_PH_ITERS = 125, 1000, 2
+# crops_multiplier=1000, split-native.  S is cut to 64 so that the
+# script stays well inside its time limit: on an NVIDIA H100 80GB HBM3
+# at 700 W, Iter0 alone took 719 s at S=1000 (f32 to its 30,000-iteration
+# cap, then the f64 certify of its stragglers), the phase 469 s at S=250
+# and 234-273 s at S=125 (the cut until the driver phase needed the
+# time; the phase's time is the card's, so it does not shrink on a
+# faster host as the host-bound phases do).  crops_multiplier, pdhg_eps
+# and pdhg_max_iters stay the bench's.
+TRUE_S, TRUE_CM, TRUE_PH_ITERS = 64, 1000, 2
 # the bench's options (bench.py:1252-1294) for farmer, with the dense
 # per-scenario prep of its accelerator row at the CPU-fallback size
 # (cm=10); SPLIT_OPTS leave out no_split_prep, so farmer's declared
@@ -133,17 +155,20 @@ SPLIT_OPTS = {k: v for k, v in SLICE_OPTS.items() if k != "no_split_prep"}
 # bench.py's uc1000 row (bench.py:309-474): stochastic unit commitment
 # at full width, 21 units (fleet_multiplier=7) over 24 h: M=2502,
 # N=1536, one shared (1, M, N) matrix, f32, with its accelerator
-# options.  Its depth is cut so that the phase ends in ~400 s (its
-# `cuts` field lists each cut): at S=1000 (tests/uc_steps_witness.py, an
-# NVIDIA H100 80GB HBM3 at 700 W) every PH solve runs to its
-# 20,000-iteration cap in ~13 s, one 64-flip screening launch of a 1-opt
-# sweep (64,000 stacked scenarios, 2,000 iterations) takes ~64 s and a
-# full sweep is 8 of them, and the EF bound ~140 s.  S=250 keeps a
-# sweep's launches at 16,000 scenarios; 10 PH iterations keep two
-# Lagrangian bounds; one sweep is one full (terminating) sweep.
+# options.  Its depth is cut so that the whole script stays well inside
+# its time limit (its `cuts` field lists each cut): at S=1000
+# (tests/uc_steps_witness.py, an NVIDIA H100 80GB HBM3 at 700 W) every
+# PH solve runs to its 20,000-iteration cap in ~13 s, one 64-flip
+# screening launch of a 1-opt sweep (64,000 stacked scenarios, 2,000
+# iterations) takes ~64 s and a full sweep is 8 of them, and the EF
+# bound ~140 s.  S=125 keeps a sweep's launches at 8,000 scenarios; 6 PH
+# iterations keep two Lagrangian bounds (after iterations 5 and 6); one
+# sweep is one full (terminating) sweep.  S was 250 and the iterations
+# 10 until the driver phase needed the time: at S=250 the phase took
+# 359-428 s on that card.
 UC_FULL = {"H": 24, "fleet_multiplier": 7}
 UC_FULL_SHAPE = (1, 2502, 1536)
-UC_S, UC_PH_ITERS, UC_SWEEPS = 250, 10, 1
+UC_S, UC_PH_ITERS, UC_SWEEPS = 125, 6, 1
 UC_OPTS = {"defaultPHrho": 50.0, "convthresh": 0.0, "pdhg_eps": 1e-4,
            "superstep_eps": 1e-4, "lagrangian_eps": 1e-4,
            "pdhg_max_iters": 20000, "iter0_infeasibility_ok": True,
@@ -169,10 +194,37 @@ WHEEL_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 40, "convthresh": 0.0,
 WHEEL_HUB_OPTS = {"rel_gap": 1e-4, "abs_gap": 1.0}
 # the heavier wheel through config + vanilla, as
 # examples/farmer_cylinders.py builds it, with the split phase's solver
-# options and PHIterLimit cut to 20
+# options and PHIterLimit cut to 8 (20 until the driver phase needed
+# the time)
 WHEEL_SPLIT_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
                     "--lagrangian", "--xhatshuffle", "--rel-gap", "0.01"]
-WHEEL_SPLIT_PH_ITERS = 20
+WHEEL_SPLIT_PH_ITERS = 8
+# the driver phase: examples/farmer_cylinders.py's command line with its
+# extension flags, through the port's amalgamator at the split cell's
+# size (S=1000, cm=10, f32, the split phase's solver options, which no
+# flag carries) with PHIterLimit cut to DRIVER_PH_ITERS; then PH alone
+# on the same batch for DRIVER_HUB_ITERS iterations with the in-hub
+# XhatClosest, the Gapper (schedule DRIVER_GAPPER) and MultRhoUpdater;
+# then --EF through the amalgamator on the wheel_row batch (f64), held
+# to the HiGHS optimum as wheel_row holds its own EF
+DRIVER_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
+               "--lagrangian", "--xhatshuffle", "--fixer",
+               "--farmer-with-integers", "--use-norm-rho-updater",
+               "--wtracker", "--primal-dual-converger", "--rel-gap", "0.01"]
+DRIVER_PH_ITERS = 6
+DRIVER_HUB_ITERS = 3
+DRIVER_GAPPER = {0: 1e-4, 2: 1e-5}
+DRIVER_EF_ARGV = ["--num-scens", str(WHEEL_S), "--EF", "--EF-solver-eps",
+                  "1e-7", "--solver-max-iters", "400000"]
+# examples/_driver.py's standard_cfg: the flag groups every cylinders
+# driver declares
+DRIVER_CFG_GROUPS = (
+    "popular_args", "ph_args", "two_sided_args", "fwph_args",
+    "lagrangian_args", "lagranger_args", "xhatlooper_args",
+    "xhatshuffle_args", "xhatspecific_args", "xhatxbar_args",
+    "xhatlshaped_args", "slammax_args", "slammin_args", "fixer_args",
+    "gapper_args", "converger_args", "norm_rho_args", "mult_rho_args",
+    "wtracker_args", "ef_args")
 
 # converged-scenario compaction (pdhg_compact_threshold): the value of
 # the bench's BENCH_COMPACT example (bench.py:1280-1285), and the width
@@ -846,7 +898,8 @@ def true_size_phase(name, split_gap):
     out = {"phase": "true_size", "S": TRUE_S, "crops_multiplier": TRUE_CM,
            "M": M, "N": N, "dtype": "float32", "split_native": True,
            "cut": (None if TRUE_S == 1000 else
-                   f"S cut from 1000 to {TRUE_S} to end within half the "
+                   f"S cut from 1000 to {TRUE_S} (125 until the driver "
+                   f"phase needed the time) to stay well inside the "
                    f"smoke's time limit; crops_multiplier, pdhg_eps and "
                    f"pdhg_max_iters as the bench"),
            "options_beyond_the_bench": {"iter0_infeasibility_ok": True},
@@ -1208,6 +1261,9 @@ def uc_cuts():
                             ("max_sweeps", UC_SWEEPS, 8)):
         if got != bench:
             cuts[key] = {"bench": bench, "here": got}
+    # the depths before the driver phase needed the time
+    cuts["S"]["before the driver phase"] = 250
+    cuts["ph_iterations"]["before the driver phase"] = 10
     return cuts
 
 
@@ -1714,8 +1770,9 @@ def wheel_phase():
         threads mode over the host seqlock: farmer S=100, cm=1, f32, PH
         hub + Lagrangian + XhatShuffle, telemetry off.  Its bounds must
         bracket the farmer-100 optimum, computed on the card by the
-        port's ExtensiveForm in f64 (and by HiGHS on the host as a
-        check).
+        port's ExtensiveForm in f64 through the amalgamator's --EF (the
+        driver phase's `driver_ef`), and by HiGHS on the host as a
+        check.
     (a') `wheel_row_telemetry`: the same row with its own telemetry
         option, as the bench writes it (wheel_row_telemetry).
     (b) `wheel_split`: farmer S=1000, cm=10, f32 built through the
@@ -1725,7 +1782,6 @@ def wheel_phase():
     import torch
 
     from mpisppy_tpu_torch.models import farmer
-    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
     from mpisppy_tpu_torch.utils import config, vanilla
 
     # (a) the bench's row, telemetry off
@@ -1733,17 +1789,13 @@ def wheel_phase():
     batch = farmer.build_batch(WHEEL_S, dtype=np.float32)
     ws, row = spin_wheel(*wheel_row_dicts(names, batch, WHEEL_OPTS),
                          "threads")
-    t = time.time()
-    ef = ExtensiveForm({"pdhg_eps": 1e-7, "pdhg_max_iters": 400000},
-                       names, batch=farmer.build_batch(WHEEL_S))
-    ef_res = ef.solve_extensive_form()
-    torch.cuda.synchronize()
-    ef_s = time.time() - t
-    opt = ef.get_objective_value()
+    # the farmer-100 optimum in f64 on the card: --EF through the
+    # port's amalgamator (the driver phase's EF run, reported there)
     highs, _ = ef_lp_oracle(farmer.build_batch(WHEEL_S))
+    ef_line, ef = driver_ef(highs)
+    ef_res, ef_s = ef.ef._result, ef_line["wall_s"]
+    opt = ef.EF_Obj
     tol = 1e-5 * abs(opt)
-    check(abs(opt - highs) <= 1e-6 * abs(highs),
-          f"farmer-{WHEEL_S} EF {opt} is off the HiGHS optimum {highs}")
     check(row["best_outer"] <= opt + tol and row["best_inner"] >= opt - tol,
           f"wheel bounds [{row['best_outer']}, {row['best_inner']}] do "
           f"not bracket the farmer-{WHEEL_S} optimum {opt}")
@@ -1759,6 +1811,7 @@ def wheel_phase():
              "highs_optimum": highs,
              "bracket_tol_rel": 1e-5}
     emit(out_a)
+    out_a["driver_ef"] = ef_line
     del ws, ef
     # (a') the same row with its own telemetry option
     out_t = wheel_row_telemetry(names, batch, row, opt)
@@ -1794,10 +1847,416 @@ def wheel_phase():
              "argv": WHEEL_SPLIT_ARGV,
              "options": dict(SPLIT_OPTS, PHIterLimit=WHEEL_SPLIT_PH_ITERS),
              "cuts": {"PHIterLimit": {"command line": cfg.max_iterations,
-                                      "here": WHEEL_SPLIT_PH_ITERS}},
+                                      "here": WHEEL_SPLIT_PH_ITERS,
+                                      "before the driver phase": 20}},
+             "s_per_superstep_before_the_cut": "5.48 (PHIterLimit 20)",
              **row}
     emit(out_b)
     return out_a, out_b
+
+
+def _driver_cfg(config, options=None):
+    """A Config with examples/_driver.py's flag groups; `options`, when
+    given, are laid over its options_dict() (the solver options the
+    split cell uses and no flag carries)."""
+    class DriverConfig(config.Config):
+        def options_dict(self):
+            return dict(super().options_dict(), **(options or {}))
+
+    cfg = DriverConfig()
+    for group in DRIVER_CFG_GROUPS:
+        getattr(cfg, group)()
+    return cfg
+
+
+def _hook_recorder():
+    """MultiExtension's fan-out, counted and timed: calls and seconds
+    per (extension class, hook), in the fan-out's order; and at each
+    pre_solve_loop, the nonant slots the coming superstep receives
+    pinned (lb_eff == ub_eff).  Returns (install, restore, rec)."""
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.extensions import MultiExtension
+    fan = MultiExtension._fan
+    rec = {"calls": {}, "seconds": {}, "pinned": None}
+
+    def timed_fan(self, hook):
+        if hook == "pre_solve_loop":
+            opt = self.opt
+            na = host(opt.batch.nonant_idx)
+            rec["pinned"] = host(opt.lb_eff)[:, na] == host(opt.ub_eff)[:, na]
+        for ext in self.extensions:
+            key = f"{type(ext).__name__}.{hook}"
+            t = time.time()
+            getattr(ext, hook)()
+            rec["seconds"][key] = rec["seconds"].get(key, 0.0) + (
+                time.time() - t)
+            rec["calls"][key] = rec["calls"].get(key, 0) + 1
+
+    def install():
+        MultiExtension._fan = timed_fan
+
+    def restore():
+        MultiExtension._fan = fan
+
+    return install, restore, rec
+
+
+def _norm_rho_checker():
+    """NormRhoUpdater.miditer held to the update rule, recomputed here
+    from host copies of the state: per slot, rho multiplied by `step`
+    where the prob-weighted primal residual exceeds `ratio` x the dual
+    one, divided where the dual one exceeds `ratio` x the primal, else
+    unchanged.  Returns (install, restore, log)."""
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.extensions.norm_rho_updater import NormRhoUpdater
+    miditer = NormRhoUpdater.miditer
+    log = []
+
+    def checked(self):
+        st = self.opt.state
+        prev = None if self._xbar_prev is None else self._xbar_prev.copy()
+        rho0 = host(self.opt.rho).copy()
+        miditer(self)
+        rho1 = host(self.opt.rho)
+        if prev is None:
+            factor = np.ones(rho0.shape[1])
+        else:
+            b = self.opt.batch
+            p = host(b.prob)[:, None].astype(np.float64)
+            x_na = host(b.nonants(st.x)).astype(np.float64)
+            xbar = host(st.xbar).astype(np.float64)
+            prim = np.sum(p * np.abs(x_na - xbar), axis=0)
+            dual = np.mean(rho0.astype(np.float64), axis=0) * np.sum(
+                p * np.abs(xbar - prev), axis=0)
+            factor = np.where(prim > self.ratio * dual, self.step,
+                              np.where(dual > self.ratio * prim,
+                                       1.0 / self.step, 1.0))
+        want = rho0 * factor[None, :]
+        check(np.array_equal(rho1 != rho0,
+                             np.broadcast_to(factor != 1.0, rho0.shape))
+              and np.allclose(rho1, want, rtol=1e-6, atol=0.0),
+              f"NormRhoUpdater at iteration {int(st.it)}: rho changed "
+              f"where the rule did not say so")
+        log.append({"it": int(st.it), "up": int(np.sum(factor > 1.0)),
+                    "down": int(np.sum(factor < 1.0)),
+                    "rho_mean": float(rho1.mean())})
+
+    def install():
+        NormRhoUpdater.miditer = checked
+
+    def restore():
+        NormRhoUpdater.miditer = miditer
+
+    return install, restore, log
+
+
+def _check_hook_counts(calls, classes, n):
+    """Each extension's hooks fired as PH's loop calls them: once for
+    pre_iter0, post_iter0 and post_everything, once per iteration for
+    the solve-loop pair, miditer and enditer, once per iteration not
+    ended by a stop for enditer_after_sync, and post_iter0_after_sync
+    never (PH calls it from no loop)."""
+    want = {"pre_iter0": {1}, "post_iter0": {1}, "post_everything": {1},
+            "pre_solve_loop": {n}, "post_solve_loop": {n}, "miditer": {n},
+            "enditer": {n}, "enditer_after_sync": {n - 1, n},
+            "post_iter0_after_sync": {0}}
+    for cls in classes:
+        for hook, ok in want.items():
+            got = calls.get(f"{cls}.{hook}", 0)
+            check(got in ok, f"{cls}.{hook} fired {got} times in {n} PH "
+                  f"iterations (want {sorted(ok)})")
+    after = {calls.get(f"{cls}.enditer_after_sync", 0) for cls in classes}
+    check(len(after) == 1, f"enditer_after_sync counts differ: {after}")
+
+
+def driver_phase(wheel_row, wheel_split):
+    """The driver layer on the card, three runs.
+
+    (a) cylinders: examples/farmer_cylinders.py's command line with its
+        extension flags (DRIVER_ARGV) through the port's
+        amalgamator.from_module(farmer, ...), at the split cell's size
+        (S=1000, cm=10, f32, integer farmer, the split phase's solver
+        options), PHIterLimit cut to DRIVER_PH_ITERS.  Both bounds
+        finite with outer <= inner; every extension's hooks fired as
+        the loop calls them; every slot pinned before the last
+        superstep holds its pinned value in state.x; rho changed where
+        NormRhoUpdater's rule says; the split and shared forms
+        launched.  Seconds per superstep beside wheel_split's, and the
+        seconds each extension's hooks took per iteration.
+    (b) hub only: PH on the same batch and prep for DRIVER_HUB_ITERS
+        iterations with MultiExtension [XhatClosest, Gapper,
+        MultRhoUpdater]: the in-hub xhat's inner bound finite (a
+        feasible candidate) and above the trivial bound, solver_eps at
+        every iteration on the Gapper's schedule (rounded to f32), the
+        shared form's launches from the in-hub xhat.
+    (d) the Fixer pinning on integer farmer-3 (driver_fixer).
+    (c) --EF through the amalgamator on the wheel_row batch (farmer
+        S=100, cm=1, f64), run and checked by driver_ef at the start of
+        the wheel phase, whose bracket it supplies: its line, from
+        `wheel_row["driver_ef"]`, is emitted here."""
+    import torch
+
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.extensions import Extension, MultiExtension
+    from mpisppy_tpu_torch.extensions.mipgapper import Gapper
+    from mpisppy_tpu_torch.extensions.mult_rho_updater import MultRhoUpdater
+    from mpisppy_tpu_torch.extensions.xhatter import XhatClosest
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.utils import amalgamator, config
+
+    # (a) cylinders through the amalgamator
+    opts = dict(SPLIT_OPTS, PHIterLimit=DRIVER_PH_ITERS)
+    cfg = _driver_cfg(config, opts)
+    rows = {}
+
+    class CountedSpinner:
+        """amalgamator's WheelSpinner, spun by spin_wheel (counts zeroed
+        just before, bounds and threads checked)."""
+        def __init__(self, hub_dict, spoke_dicts):
+            self.dicts = (hub_dict, spoke_dicts)
+
+        def spin(self):
+            ws, rows["wheel"] = spin_wheel(*self.dicts, "interleaved")
+            return ws
+
+    hooks_on, hooks_off, rec = _hook_recorder()
+    nr_on, nr_off, nr_log = _norm_rho_checker()
+    spinner = amalgamator.WheelSpinner
+    amalgamator.WheelSpinner = CountedSpinner
+    hooks_on()
+    nr_on()
+    try:
+        t0 = time.time()
+        ama = amalgamator.from_module(farmer, cfg, args=DRIVER_ARGV,
+                                      progname="farmer_cylinders",
+                                      batch_kwargs={"dtype": np.float32})
+        ama.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        amalgamator.WheelSpinner = spinner
+        hooks_off()
+        nr_off()
+    row = rows["wheel"]
+    hub = ama.wheel.spcomm
+    opt = hub.opt
+    n = hub.current_iteration()
+    exts = [type(e).__name__ for e in opt.extobject.extensions]
+    check(exts == ["Fixer", "NormRhoUpdater", "Wtracker_extension"],
+          f"the hub's extensions are {exts}")
+    check(type(opt.convobject).__name__ == "PrimalDualConverger",
+          f"the hub's converger is {opt.convobject}")
+    # polled after the hub's sync: not in an iteration the hub ended
+    check(len(opt.convobject.history) in (n - 1, n),
+          f"the converger was polled {len(opt.convobject.history)} times "
+          f"in {n} PH iterations")
+    check(opt.batch.c.dtype == torch.float32 and bool(
+        opt.batch.integer_mask.any()), "not the f32 integer farmer batch")
+    _check_hook_counts(rec["calls"], exts, n)
+    fixed = opt.count_fixed()
+    pinned = rec["pinned"]
+    na = host(opt.batch.nonant_idx)
+    lb = host(opt.lb_eff)[:, na]
+    x_na = host(opt.state.x)[:, na]
+    # at this size the Fixer's default tolerance (a cross-scenario
+    # variance under 1e-2) pins nothing within a few PH iterations;
+    # whatever it pinned before the last superstep must hold its value,
+    # and driver_fixer below pins slots for certain
+    check(pinned is not None and np.array_equal(x_na[pinned], lb[pinned]),
+          f"pinned slots left their value")
+    check(len(nr_log) == n, f"NormRhoUpdater ran {len(nr_log)} times")
+    by_form = row["launches_by_form"]
+    check(by_form.get("split", 0) > 0 and by_form.get("shared", 0) > 0,
+          f"the driver's wheel launched {by_form}")
+    check(row["matmul_chunks"] == 0,
+          f"{row['matmul_chunks']} chunks took the matmul route at cm=10")
+    hook_s = {k: v / n for k, v in sorted(rec["seconds"].items())
+              if not k.endswith(("pre_iter0", "post_iter0",
+                                 "post_everything"))}
+    out_a = {"phase": "driver_cylinders", "S": S, "crops_multiplier": CM,
+             "dtype": "float32", "argv": DRIVER_ARGV,
+             "options": opts, "cuts": {"PHIterLimit": {
+                 "command line": cfg.max_iterations,
+                 "here": DRIVER_PH_ITERS}},
+             **row, "amalgamator_wall_s": wall,
+             "wall_build_s": ama.wall_build, "wall_run_s": ama.wall_run,
+             "s_per_superstep_wheel_split": wheel_split["s_per_superstep"],
+             "extensions": exts, "hook_calls": rec["calls"],
+             "hook_s_per_iteration": hook_s,
+             "hooks_s_per_iteration_total": sum(hook_s.values()),
+             "count_fixed": fixed, "pinned_before_last_superstep":
+                 int(pinned.sum()), "nonant_slots": int(pinned.size),
+             "norm_rho_updates": nr_log,
+             "converger": {"name": "PrimalDualConverger",
+                           "convergence_value":
+                               opt.convobject.convergence_value,
+                           "history": opt.convobject.history}}
+    emit(out_a)
+
+    # (b) PH alone on the same batch: the in-hub xhat, Gapper, MultRho
+    eps_log = []
+
+    class EpsLog(Extension):
+        def post_iter0(self):
+            eps_log.append((0, float(self.opt.solver_eps)))
+
+        def enditer(self):
+            eps_log.append((int(self.opt.state.it),
+                            float(self.opt.solver_eps)))
+
+    names = farmer.scenario_names_creator(S)
+    hopts = dict(SPLIT_OPTS, PHIterLimit=DRIVER_HUB_ITERS,
+                 gapperoptions={"mipgapdict": DRIVER_GAPPER})
+    ph = PH(hopts, names, batch=opt.batch, prep=opt.prep,
+            extensions=MultiExtension,
+            extension_kwargs={"ext_classes": [XhatClosest, Gapper,
+                                              MultRhoUpdater, EpsLog]})
+    del ama, hub, opt
+    hooks_on, hooks_off, rec_b = _hook_recorder()
+    reset_counts()
+    hooks_on()
+    try:
+        t = time.time()
+        conv, eobj, trivial = ph.ph_main()
+        torch.cuda.synchronize()
+        wall_b = time.time() - t
+    finally:
+        hooks_off()
+    xc = ph.extobject.extdict["XhatClosest"]
+    inner = float(xc.best_inner_bound)
+    check(np.isfinite(inner) and xc.best_nonants is not None,
+          f"the in-hub XhatClosest found no feasible candidate ({inner})")
+    check(trivial <= inner + 1e-6 * abs(inner),
+          f"trivial bound {trivial} above the in-hub inner bound {inner}")
+    sched, want = sorted(DRIVER_GAPPER), []
+    for it, _ in eps_log:
+        key = max(k for k in sched if k <= it)
+        want.append((it, float(np.float32(DRIVER_GAPPER[key]))))
+    check(eps_log == want and len(eps_log) == DRIVER_HUB_ITERS + 1,
+          f"solver_eps {eps_log} is off the Gapper's schedule {want}")
+    _check_hook_counts(rec_b["calls"], ["XhatClosest", "Gapper",
+                                        "MultRhoUpdater"],
+                       int(ph.state.it))
+    by_form_b = pdhg_chunk.launches_by("form")
+    check(by_form_b.get("shared", 0) > 0,
+          f"the in-hub xhat launched no shared form: {by_form_b}")
+    out_b = {"phase": "driver_hub", "S": S, "crops_multiplier": CM,
+             "dtype": "float32", "options": {
+                 k: v for k, v in hopts.items()},
+             "ph_iterations": int(ph.state.it), "wall_s": wall_b,
+             "trivial_bound": trivial, "eobj": eobj,
+             "xhat_closest_inner_bound": inner,
+             "solver_eps_by_iteration": eps_log,
+             "rho_mean_end": float(ph.rho.mean()),
+             "launches_by_form": by_form_b,
+             "shared_launches_in_hub_xhat": by_form_b.get("shared", 0),
+             "launch_shapes": launch_table(),
+             "hook_s_per_iteration": {
+                 k: v / int(ph.state.it)
+                 for k, v in sorted(rec_b["seconds"].items())
+                 if not k.endswith(("pre_iter0", "post_iter0",
+                                    "post_everything"))}}
+    emit(out_b)
+    del ph
+
+    # (d) the Fixer pinning for certain: tests/test_extensions.py's
+    # integer farmer-3 case (rho 2, boundtol 0.5, nb 2), f64
+    out_d = driver_fixer()
+    emit(out_d)
+
+    # (c) --EF through the amalgamator on the wheel_row batch, f64: run
+    # at the start of the wheel phase, whose bracket it supplies
+    out_c = wheel_row["driver_ef"]
+    emit(out_c)
+    return out_a, out_b, out_c
+
+
+def driver_ef(highs):
+    """--EF through the port's amalgamator on the wheel_row batch
+    (farmer S=100, cm=1, f64), as a user runs it: its objective within
+    1e-6 relative of the HiGHS optimum `highs`, its dual bound below
+    it.  Returns the driver_ef line and the Amalgamator."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.utils import amalgamator, config
+    t = time.time()
+    ama = amalgamator.from_module(farmer, _driver_cfg(config),
+                                  args=DRIVER_EF_ARGV, progname="farmer_ef")
+    ama.run()
+    torch.cuda.synchronize()
+    check(ama.ef.batch.c.device.type == "cuda"
+          and ama.ef.batch.c.dtype == torch.float64,
+          "the EF batch is not f64 on the card")
+    check(abs(ama.EF_Obj - highs) <= 1e-6 * abs(highs),
+          f"amalgamator EF {ama.EF_Obj} is off the HiGHS optimum {highs}")
+    check(ama.best_outer_bound <= ama.EF_Obj + 1e-6 * abs(ama.EF_Obj),
+          f"EF dual bound {ama.best_outer_bound} above {ama.EF_Obj}")
+    line = {"phase": "driver_ef", "S": WHEEL_S, "crops_multiplier": 1,
+            "dtype": "float64", "argv": DRIVER_EF_ARGV,
+            "wall_s": time.time() - t, "wall_build_s": ama.wall_build,
+            "wall_run_s": ama.wall_run, "ef_obj": ama.EF_Obj,
+            "ef_dual_bound": ama.best_outer_bound, "highs_optimum": highs,
+            "rel_err_vs_highs": abs(ama.EF_Obj - highs) / abs(highs),
+            "ef_iters": int(ama.ef._result.iters),
+            "run_in": "the wheel phase, whose bracket it supplies"}
+    return line, ama
+
+
+def driver_fixer():
+    """The Fixer on the card where it pins: integer farmer-3 in f64
+    with tests/test_extensions.py's options (rho 2, boundtol 0.5, nb 2,
+    12 PH iterations).  Slots pinned before the last superstep hold
+    their pinned (integral) values in state.x exactly: the kernel's box
+    projection onto lb_eff == ub_eff."""
+    import torch
+
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.extensions import MultiExtension
+    from mpisppy_tpu_torch.extensions.fixer import Fixer
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    from mpisppy_tpu_torch.opt.ph import PH
+    opts = {"defaultPHrho": 2.0, "PHIterLimit": 12, "convthresh": 0.0,
+            "pdhg_eps": 1e-6, "pdhg_max_iters": 4000,
+            "fixeroptions": {"boundtol": 0.5, "nb": 2}}
+    hooks_on, hooks_off, rec = _hook_recorder()
+    ph = PH(opts, farmer.scenario_names_creator(3),
+            batch=farmer.build_batch(3, use_integer=True),
+            extensions=MultiExtension,
+            extension_kwargs={"ext_classes": [Fixer]})
+    reset_counts()
+    hooks_on()
+    try:
+        t = time.time()
+        ph.ph_main()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    finally:
+        hooks_off()
+    na = host(ph.batch.nonant_idx)
+    lb, ub = host(ph.lb_eff)[:, na], host(ph.ub_eff)[:, na]
+    x_na = host(ph.state.x)[:, na]
+    pinned = rec["pinned"]
+    fixed = ph.count_fixed()
+    check(fixed == int(np.sum(lb == ub)) and fixed > 0
+          and pinned is not None and pinned.any(),
+          f"the Fixer pinned no slot on integer farmer-3 ({fixed})")
+    check(np.array_equal(lb[lb == ub], np.round(lb[lb == ub])),
+          "a pinned value is not integral")
+    check(np.array_equal(x_na[pinned], lb[pinned]),
+          f"{int(np.sum(x_na[pinned] != lb[pinned]))} pinned slots left "
+          "their value")
+    launched = pdhg_chunk.launches_by("form")
+    check(sum(launched.values()) > 0, "driver_fixer launched no kernel")
+    return {"phase": "driver_fixer", "S": 3, "dtype": "float64",
+            "options": opts, "wall_s": wall,
+            "ph_iterations": int(ph.state.it), "count_fixed": fixed,
+            "pinned_before_last_superstep": int(pinned.sum()),
+            "pinned_values": lb[lb == ub].tolist(),
+            "launches_by_form": launched}
 
 
 def golden_phase():
@@ -1871,8 +2330,11 @@ def main():
     golden_phase()
     emit({"phase": "golden_done", "s": time.time() - t})
     t = time.time()
-    _, wsplit = wheel_phase()
-    emit({"phase": "wheel_done", "s": time.time() - t,
+    wrow, wsplit = wheel_phase()
+    emit({"phase": "wheel_done", "s": time.time() - t})
+    t = time.time()
+    drv, _, _ = driver_phase(wrow, wsplit)
+    emit({"phase": "driver_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1923,6 +2385,13 @@ def main():
                 if r["form"] == "shared" and (r["M"], r["N"]) == (174, 114))
             if form == "shared_uc"
             else wsplit["launches_by_form"].get(form, 0))
+        # its launches in the driver phase's cylinders run, counted
+        # there (for shared_uc: the shared form at M=174, N=114)
+        entry["launches_driver"] = (
+            sum(r["launches"] for r in drv["launch_shapes"]
+                if r["form"] == "shared" and (r["M"], r["N"]) == (174, 114))
+            if form == "shared_uc"
+            else drv["launches_by_form"].get(form, 0))
         # its launches in the compact phase's compacted run, counted
         # there (for shared_uc: the shared form at M=174, N=114)
         entry["launches_compact"] = (

@@ -2,5 +2,5 @@
 `mpisppy_tpu/cylinders`): the PH hub, the Lagrangian and Lagranger
 outer-bound spokes, and the xhat and slam inner-bound spokes, on one
 device.  Not ported yet: `cross_scen_spoke` (ROADMAP.md queue A item
-7), the fwph and L-shaped cylinders and `APHHub` (item 10), and
+11), the fwph and L-shaped cylinders and `APHHub` (item 10), and
 multiproc spokes (`proc.py`, item 11)."""

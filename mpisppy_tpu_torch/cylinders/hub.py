@@ -16,7 +16,8 @@ gauges and a hub.bounds counter sample on the trace, and each
 
 Not ported yet: `APHHub` and `LShapedHub` (ROADMAP.md queue A item 10),
 the multiproc supervisor (item 11: `supervisor` stays None) and the
-cross-scenario cut wiring of `cross_scen_spoke` (item 7).
+wiring of an extension to its spoke's window for `cross_scen_spoke`
+(item 11).
 """
 
 from __future__ import annotations

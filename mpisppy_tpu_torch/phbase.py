@@ -21,10 +21,16 @@ superstep runs as four timed cuts (solve / x̄ / W update / conv), each
 a `ph.phase.*` span with a device sync after it.  With telemetry off
 the superstep is the plain call with one sync.
 
+Extensions (`extensions/`) are called at the hook points of the loop;
+they may replace `rho`, `lb_eff`/`ub_eff` (`fix_nonants`) or
+`solver_eps` between supersteps, and every superstep receives the
+current values as arguments.  `options["ph_converger"]` (a class of
+`convergers/`) is polled once per iteration after the hub sync.
+
 Not ported yet (ROADMAP queue A): run checkpoints (`run_checkpoint`,
-`resume_from`), chaos injection, `ph_converger`, `reshard` and
-`variable_probability`.  Options that would select them raise
-NotImplementedError (spbase._UNPORTED_OPTIONS).
+`resume_from`), chaos injection, `reshard` and `variable_probability`.
+Options that would select them raise NotImplementedError
+(spbase._UNPORTED_OPTIONS).
 """
 
 from __future__ import annotations
@@ -213,6 +219,13 @@ class PHBase(SPOpt):
             }
             self._ladder_eps = self._ladder["start"]
 
+        # optional converger: options["ph_converger"] is a class of
+        # convergers/, polled once per PH iteration (iterk_loop)
+        self.convobject = None
+        conv_cls = self.options.get("ph_converger")
+        if conv_cls is not None:
+            self.convobject = conv_cls(self)
+
     # -- hook plumbing (reference extensions/extension.py API) ------------
     def _ext(self, hook, *args):
         if self.extobject is not None:
@@ -240,6 +253,11 @@ class PHBase(SPOpt):
         lb[:, na] = torch.where(m, b.lb[:, na], lb[:, na])
         ub[:, na] = torch.where(m, b.ub[:, na], ub[:, na])
         self.lb_eff, self.ub_eff = lb, ub
+
+    def count_fixed(self):
+        """Nonant slots pinned by fix_nonants (lb_eff == ub_eff)."""
+        na = self.batch.nonant_idx
+        return int(torch.sum(self.lb_eff[:, na] == self.ub_eff[:, na]))
 
     # -- Iter0 (reference phbase.py:758-872) ------------------------------
     def Iter0(self):
@@ -417,6 +435,10 @@ class PHBase(SPOpt):
                 if self.spcomm.is_converged():
                     global_toc(f"PH terminated by hub at iter {k}")
                     break
+            if self.convobject is not None and self.convobject.is_converged():
+                global_toc(f"PH terminated by converger "
+                           f"{type(self.convobject).__name__} at iter {k}")
+                break
             if conv < convthresh:
                 global_toc(f"PH converged (conv={conv:.3e} < "
                            f"{convthresh}) at iter {k}")

@@ -22,9 +22,7 @@ from .ir import ScenarioBatch
 
 # options whose machinery this slice does not carry, with the ROADMAP.md
 # queue A item that ports it: refusing them beats ignoring them
-_UNPORTED_OPTIONS = {"resume_from": 6, "run_checkpoint": 6, "chaos": 6,
-                     "ph_converger": 7}
-
+_UNPORTED_OPTIONS = {"resume_from": 6, "run_checkpoint": 6, "chaos": 6}
 
 
 class SPBase:

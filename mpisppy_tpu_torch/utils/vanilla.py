@@ -9,11 +9,11 @@ port needs `batch=` (the `scenario_creator` path is ROADMAP.md queue A
 item 9); on the CPU put `device="cpu"` into the returned dicts'
 `opt_kwargs` (the hub's device is the spokes' default).
 
-Not ported yet, each raising where selected: `aph_hub`,
-`lshaped_hub`, `fwph_spoke`, `xhatlshaped_spoke` (item 10); the
-extension adders `add_fixer`, `add_norm_rho`, `add_multi_rho`,
-`add_wtracker` and `extension_adder` (item 7).  Each spoke factory
-resolves its own `{root}_solver_*` options through
+The extension adders (`extension_adder`, `add_fixer`, `add_norm_rho`,
+`add_multi_rho`, `add_wtracker`) attach `extensions/` classes to a hub
+dict.  Not ported yet, each raising where selected: `aph_hub`,
+`lshaped_hub`, `fwph_spoke`, `xhatlshaped_spoke` (item 10).  Each
+spoke factory resolves its own `{root}_solver_*` options through
 `utils/solver_spec.py`.
 """
 
@@ -247,20 +247,51 @@ def build_spokes(cfg, scenario_creator, scenario_denouement,
 
 
 def extension_adder(hub_dict, ext_class, ext_kwargs=None):
-    raise not_ported("vanilla.extension_adder (MultiExtension)", 7)
+    """Attach an extension class to a hub dict (the reference's
+    cfg_vanilla.py:164); the second one promotes to MultiExtension."""
+    from ..extensions import MultiExtension
+    kw = hub_dict["opt_kwargs"]
+    cur = kw.get("extensions")
+    if cur is None:
+        kw["extensions"] = ext_class
+        kw["extension_kwargs"] = ext_kwargs
+    elif cur is MultiExtension:
+        kw["extension_kwargs"]["ext_classes"].append(ext_class)
+    else:
+        kw["extensions"] = MultiExtension
+        kw["extension_kwargs"] = {"ext_classes": [cur, ext_class]}
+    return hub_dict
 
 
 def add_fixer(hub_dict, cfg):
-    raise not_ported("vanilla.add_fixer (the Fixer extension)", 7)
+    """The Fixer with the cfg's tolerance and count (the reference's
+    cfg_vanilla.py:184)."""
+    from ..extensions.fixer import Fixer
+    hub_dict["opt_kwargs"]["options"]["fixeroptions"] = {
+        "boundtol": cfg.get("fixer_tol", 1e-2),
+        "nb": cfg.get("fixer_nb", 3)}
+    return extension_adder(hub_dict, Fixer)
 
 
 def add_multi_rho(hub_dict, cfg):
-    raise not_ported("vanilla.add_multi_rho (MultRhoUpdater)", 7)
+    from ..extensions.mult_rho_updater import MultRhoUpdater
+    hub_dict["opt_kwargs"]["options"]["mult_rho_options"] = {
+        "convergence_tolerance":
+            cfg.get("mult_rho_convergence_tolerance", 1e-4),
+        "rho_update_stop_iteration":
+            cfg.get("mult_rho_update_stop_iteration"),
+        "rho_update_start_iteration":
+            cfg.get("mult_rho_update_start_iteration", 2)}
+    return extension_adder(hub_dict, MultRhoUpdater)
 
 
 def add_norm_rho(hub_dict, cfg):
-    raise not_ported("vanilla.add_norm_rho (NormRhoUpdater)", 7)
+    from ..extensions.norm_rho_updater import NormRhoUpdater
+    return extension_adder(hub_dict, NormRhoUpdater)
 
 
 def add_wtracker(hub_dict, cfg):
-    raise not_ported("vanilla.add_wtracker (the wtracker extension)", 7)
+    from ..extensions.wtracker_extension import Wtracker_extension
+    hub_dict["opt_kwargs"]["options"]["wtracker_options"] = {
+        "wlen": cfg.get("wtracker_wlen", 10)}
+    return extension_adder(hub_dict, Wtracker_extension)

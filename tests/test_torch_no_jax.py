@@ -8,7 +8,9 @@
   interleaved wheel (PH hub, Lagrangian and XhatShuffle spokes, built
   through `utils/config` and `utils/vanilla`) on the CPU, with telemetry
   into a dir (`telemetry/`, `log.py`) and converged-scenario compaction
-  on, and finds no `jax` and no `mpisppy_tpu.*` module loaded.
+  on, imports every module of `extensions/` and `convergers/`, runs
+  `utils/amalgamator` in EF mode, and finds no `jax` and no
+  `mpisppy_tpu.*` module loaded.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
 
@@ -47,7 +49,7 @@ def test_ast_no_jax_or_jax_package_imports():
     scanned = {p.relative_to(ROOT).parts[1] for p in files
                if p.parent != ROOT}
     assert {"cylinders", "resilience", "utils", "ops", "opt",
-            "models", "telemetry"} <= scanned
+            "models", "telemetry", "extensions", "convergers"} <= scanned
     assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
     assert ROOT / "mpisppy_tpu_torch" / "log.py" in files
     assert {p.name for p in files if p.parent.name == "telemetry"} == {
@@ -105,6 +107,18 @@ spokes = vanilla.build_spokes(cfg, farmer.scenario_creator, None, names,
 for d in [hub] + spokes:
     d["opt_kwargs"]["options"]["telemetry"] = {"dir": tdir}
 ws = WheelSpinner(hub, spokes).spin()
+
+import importlib, pkgutil
+import mpisppy_tpu_torch.convergers, mpisppy_tpu_torch.extensions
+for pkg in (mpisppy_tpu_torch.extensions, mpisppy_tpu_torch.convergers):
+    for info in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"{pkg.__name__}.{info.name}")
+from mpisppy_tpu_torch.utils import amalgamator, gradient, wtracker, wxbarutils
+acfg = config.Config()
+for g in ("popular_args", "ph_args", "ef_args"):
+    getattr(acfg, g)()
+ama = amalgamator.from_module(farmer, acfg, args=["--num-scens", "3",
+                              "--EF"], device="cpu").run()
 with open(os.path.join(tdir, "trace.json")) as f:
     rows = [e["args"]["name"] for e in json.load(f)["traceEvents"]
             if e["ph"] == "M"]
@@ -113,8 +127,11 @@ loaded = sorted(m for m in sys.modules
 wheel = sorted(m for m in sys.modules
                if m.startswith(("mpisppy_tpu_torch.cylinders.",
                                 "mpisppy_tpu_torch.resilience.",
-                                "mpisppy_tpu_torch.utils.")))
+                                "mpisppy_tpu_torch.utils.",
+                                "mpisppy_tpu_torch.extensions.",
+                                "mpisppy_tpu_torch.convergers.")))
 print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
+                  "ef_obj": ama.EF_Obj,
                   "bounds": [ws.BestOuterBound, ws.BestInnerBound],
                   "traj": traj, "rows": rows,
                   "traffic": telemetry.traffic_counters()}))
@@ -130,7 +147,13 @@ def test_fresh_interpreter_port_run_loads_no_jax():
     assert np.isfinite(res["eobj"])
     assert {"mpisppy_tpu_torch.cylinders.hub",
             "mpisppy_tpu_torch.resilience.bounds",
-            "mpisppy_tpu_torch.utils.vanilla"} <= set(res["wheel"])
+            "mpisppy_tpu_torch.utils.vanilla",
+            "mpisppy_tpu_torch.utils.amalgamator",
+            "mpisppy_tpu_torch.extensions.fixer",
+            "mpisppy_tpu_torch.extensions.xhatter",
+            "mpisppy_tpu_torch.convergers.primal_dual_converger"} <= set(
+                res["wheel"])
+    assert abs(res["ef_obj"] - -108390.0) < 10.0
     outer, inner = res["bounds"]
     assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner
     assert res["traj"] and res["traj"][-1]["active"] == 0
@@ -154,9 +177,15 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
 
 def test_unported_options_refuse():
     b = farmer.build_batch(3, device="cpu")
-    for key in ("resume_from", "run_checkpoint", "chaos", "ph_converger"):
+    for key in ("resume_from", "run_checkpoint", "chaos"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PH({key: "x"}, ["s0", "s1", "s2"], batch=b, device="cpu")
+    # ph_converger is ported: the option builds the converger
+    from mpisppy_tpu_torch.convergers.norm_rho_converger import (
+        NormRhoConverger)
+    assert isinstance(PH({"ph_converger": NormRhoConverger},
+                         ["s0", "s1", "s2"], batch=b,
+                         device="cpu").convobject, NormRhoConverger)
     # telemetry is ported: the option configures the handle
     assert PH({"telemetry": "on"}, ["s0", "s1", "s2"], batch=b,
               device="cpu")._tel.enabled

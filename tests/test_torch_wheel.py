@@ -722,11 +722,6 @@ UNPORTED = {
                                                   None, NAMES), 10),
     "vanilla_xhatlshaped": (lambda: vanilla.build_spokes(
         _cfg(xhatlshaped=True), None, None, NAMES), 10),
-    "add_fixer": (lambda: vanilla.add_fixer({}, _cfg()), 7),
-    "add_norm_rho": (lambda: vanilla.add_norm_rho({}, _cfg()), 7),
-    "add_multi_rho": (lambda: vanilla.add_multi_rho({}, _cfg()), 7),
-    "add_wtracker": (lambda: vanilla.add_wtracker({}, _cfg()), 7),
-    "extension_adder": (lambda: vanilla.extension_adder({}, object), 7),
     "scenario_creator": (lambda: farmer.scenario_creator("scen0"), 9),
 }
 
@@ -752,9 +747,27 @@ def _solver_option(factory, **kv):
         "options"]["pdhg_eps"]
 
 
-# parts that raised until ported (ROADMAP.md queue A items 8 and 5): each
-# case now checks that the part works
+def _adder(name):
+    """A vanilla extension adder attaches its extension to a hub dict."""
+    hub = vanilla.ph_hub(_cfg(), None, None, NAMES)
+    if name == "extension_adder":
+        from mpisppy_tpu_torch.extensions.mipgapper import Gapper
+        vanilla.extension_adder(hub, Gapper)
+        vanilla.extension_adder(hub, Gapper)
+        return hub["opt_kwargs"]["extension_kwargs"] == {
+            "ext_classes": [Gapper, Gapper]}
+    getattr(vanilla, name)(hub, _cfg())
+    return hub["opt_kwargs"]["extensions"] is not None
+
+
+# parts that raised until ported (ROADMAP.md queue A items 8, 5 and 7):
+# each case now checks that the part works
 PORTED = {
+    "add_fixer": lambda: _adder("add_fixer"),
+    "add_norm_rho": lambda: _adder("add_norm_rho"),
+    "add_multi_rho": lambda: _adder("add_multi_rho"),
+    "add_wtracker": lambda: _adder("add_wtracker"),
+    "extension_adder": lambda: _adder("extension_adder"),
     "hub_telemetry": lambda: _telemetry_spin({"telemetry": True}, {}),
     "spoke_telemetry": lambda: _telemetry_spin({}, {"telemetry": True}),
     "root_solver_option": lambda: _solver_option(
