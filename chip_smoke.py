@@ -103,10 +103,36 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
               xhat's shared-form launches).  `driver_ef`: --EF through
               the amalgamator on the wheel_row batch, f64, within 1e-6 of
               HiGHS.
+ 13. corpus   the model corpus through `amalgamator.from_module`, as
+              examples/run_all.py runs it (interleaved wheels): hydro
+              (3,3) f64 (20 of run_all.py's 40 iterations), its bounds
+              bracketing the f64 EF optimum, which
+              agrees with HiGHS on the multistage EF (`ef_lp_oracle`:
+              one column per tree node and slot), and the JAX package's
+              golden PH run (180, 190); aircond (10,10,10), S=1000, 111
+              nodes, f32, 4 PH iterations, bracketing HiGHS, x̄ one
+              value per node; acopf3 on the IEEE 14-bus case (3,2,2)
+              f32 (a nonzero qdiag; 5 of run_all.py's 10 iterations)
+              bracketing the port's f64 EF (a QP), then the
+              5-bus (2,2) row; the two-stage rows (sizes, apl1p,
+              battery, netdes, gbd, usar) f32 with finite bounds and
+              each f64 --EF within 1e-6 of HiGHS; SPBase's
+              scenario_creator path equal to build_batch for hydro and
+              farmer (S=100, cm=10).  The kernel phase holds the dense
+              form at the corpus's shapes against its plain version:
+              A in shared memory (sizes), in global memory (usar), a
+              nonzero qs with A in shared / global memory (acopf3
+              ieee14, f32 / f64) and in registers (acopf3 (2,2)).
+The corpus phase, then the uc fallback pass, sslp, the golden and the
+compact phase run in a second process on the same card (this script
+with SECOND_PROCESS_FLAG), started when true_size ends, beside the uc,
+wheel and driver phases of the main process; its lines are copied into
+this output when it ends, the last one `child` with its wall.
 Then the kernels line (each entry with its launches in `wheel_split`,
 in the driver phase's cylinders run and in the compact phase, and the
-dense and split forms with their compacted-slab run), the nvidia-smi
-line, and the result line.
+dense and split forms with their compacted-slab run; the corpus rows
+with their launches on the corpus path), the nvidia-smi line, and the
+result line.
 
 Imports nothing of jax and nothing of the JAX package (scipy only for
 the HiGHS reference of the sslp phase).  Exits non-zero,
@@ -131,15 +157,16 @@ S, CM, N_STEPS = 1000, 10, 40
 PH_ITERS = 4
 BF16X_PH_ITERS = 2
 # the true-size instance (bench.py:1229-1243): S=1000 scenarios at
-# crops_multiplier=1000, split-native.  S is cut to 64 so that the
+# crops_multiplier=1000, split-native.  S is cut to 32 so that the
 # script stays well inside its time limit: on an NVIDIA H100 80GB HBM3
 # at 700 W, Iter0 alone took 719 s at S=1000 (f32 to its 30,000-iteration
-# cap, then the f64 certify of its stragglers), the phase 469 s at S=250
-# and 234-273 s at S=125 (the cut until the driver phase needed the
-# time; the phase's time is the card's, so it does not shrink on a
-# faster host as the host-bound phases do).  crops_multiplier, pdhg_eps
-# and pdhg_max_iters stay the bench's.
-TRUE_S, TRUE_CM, TRUE_PH_ITERS = 64, 1000, 2
+# cap, then the f64 certify of its stragglers), the phase 469 s at S=250,
+# 234-273 s at S=125 (the cut until the driver phase needed the time)
+# and 168.8 s at S=64 (the cut until the corpus phase needed the time;
+# the phase's time is the card's, so it does not shrink on a faster
+# host as the host-bound phases do).  crops_multiplier, pdhg_eps and
+# pdhg_max_iters stay the bench's.
+TRUE_S, TRUE_CM, TRUE_PH_ITERS = 32, 1000, 2
 # the bench's options (bench.py:1252-1294) for farmer, with the dense
 # per-scenario prep of its accelerator row at the CPU-fallback size
 # (cm=10); SPLIT_OPTS leave out no_split_prep, so farmer's declared
@@ -161,14 +188,25 @@ SPLIT_OPTS = {k: v for k, v in SLICE_OPTS.items() if k != "no_split_prep"}
 # PH solve runs to its 20,000-iteration cap in ~13 s, one 64-flip
 # screening launch of a 1-opt sweep (64,000 stacked scenarios, 2,000
 # iterations) takes ~64 s and a full sweep is 8 of them, and the EF
-# bound ~140 s.  S=125 keeps a sweep's launches at 8,000 scenarios; 6 PH
-# iterations keep two Lagrangian bounds (after iterations 5 and 6); one
+# bound ~140 s.  S=64 keeps a sweep's launches at 4,096 scenarios; 2 PH
+# iterations keep one Lagrangian bound (after the last iteration; 5
+# until the script ran over its limit on a slower host, 6 until the
+# corpus phase needed the time, with a second after iteration 6); one
 # sweep is one full (terminating) sweep.  S was 250 and the iterations
 # 10 until the driver phase needed the time: at S=250 the phase took
-# 359-428 s on that card.
+# 359-428 s on that card; S was 125 (264.3 s) until the corpus phase
+# needed the time.
 UC_FULL = {"H": 24, "fleet_multiplier": 7}
 UC_FULL_SHAPE = (1, 2502, 1536)
-UC_S, UC_PH_ITERS, UC_SWEEPS = 125, 6, 1
+UC_S, UC_PH_ITERS, UC_SWEEPS = 64, 2, 1
+# the consensus-EF dual bound's iteration cap (ef_dual_bound's default
+# and the bench's 100,000) for its f32 solve: at S=64 that solve runs to
+# the cap; the f64 certify after it runs to its own 100,000-iteration
+# floor whatever this cap (3,500 consensus chunks, 71.6 s in all at
+# 40,000 and 72.4 s at 20,000 on an NVIDIA H100 80GB HBM3 at 700 W, so
+# a lower cap gives no time back); the bound is valid at any iterate,
+# only looser at a lower cap
+UC_EF_ITERS = 40000
 UC_OPTS = {"defaultPHrho": 50.0, "convthresh": 0.0, "pdhg_eps": 1e-4,
            "superstep_eps": 1e-4, "lagrangian_eps": 1e-4,
            "pdhg_max_iters": 20000, "iter0_infeasibility_ok": True,
@@ -194,11 +232,12 @@ WHEEL_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 40, "convthresh": 0.0,
 WHEEL_HUB_OPTS = {"rel_gap": 1e-4, "abs_gap": 1.0}
 # the heavier wheel through config + vanilla, as
 # examples/farmer_cylinders.py builds it, with the split phase's solver
-# options and PHIterLimit cut to 8 (20 until the driver phase needed
-# the time)
+# options and PHIterLimit cut to 3 (20 until the driver phase, 8 until
+# the corpus phase needed the time, 5 until the script ran over its
+# limit on a slower host)
 WHEEL_SPLIT_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
                     "--lagrangian", "--xhatshuffle", "--rel-gap", "0.01"]
-WHEEL_SPLIT_PH_ITERS = 8
+WHEEL_SPLIT_PH_ITERS = 3
 # the driver phase: examples/farmer_cylinders.py's command line with its
 # extension flags, through the port's amalgamator at the split cell's
 # size (S=1000, cm=10, f32, the split phase's solver options, which no
@@ -225,6 +264,79 @@ DRIVER_CFG_GROUPS = (
     "xhatlshaped_args", "slammax_args", "slammin_args", "fixer_args",
     "gapper_args", "converger_args", "norm_rho_args", "mult_rho_args",
     "wtracker_args", "ef_args")
+
+# the corpus phase: examples/run_all.py's rows through the port's
+# amalgamator (interleaved wheels), each with the counts zeroed just
+# before it; iteration cuts against run_all.py in CORPUS_CUTS
+# hydro's row runs 40 iterations in run_all.py; cut to 20 for time (the
+# 40-iteration wheel took 96-146 s on an NVIDIA H100 80GB HBM3 at 700 W,
+# host-bound, its bounds [183.1717, 187.6257] around the optimum 186.17)
+CORPUS_HYDRO_ITERS = 20
+CORPUS_HYDRO_ARGV = ["--branching-factors", "3,3", "--max-iterations",
+                     str(CORPUS_HYDRO_ITERS), "--default-rho", "1",
+                     "--lagrangian", "--xhatshuffle"]
+# the full published aircond parameter table at a tree of 1000 leaves
+# (S=1000, 4 stages, 111 non-leaf nodes): a full batch for the kernel;
+# 4 PH iterations (10 until the script ran over its limit on a slower
+# host: 64-76 s on an NVIDIA H100 80GB HBM3 at 700 W, its inner bound
+# +inf all the same)
+CORPUS_AIRCOND_ITERS = 4
+CORPUS_AIRCOND_ARGV = ["--branching-factors", "10,10,10",
+                       "--max-iterations", str(CORPUS_AIRCOND_ITERS),
+                       "--default-rho", "1", "--lagrangian",
+                       "--xhatshuffle"]
+# the multistage wheels' xhat candidates are infeasible until PH
+# converges (their sources break the balance rows), and each such
+# evaluation runs its f64 certify to the 100,000-iteration cap: in
+# aircond 25,000 of the run's 35,658 chunks, ~90 of its 128 s on an
+# NVIDIA H100 80GB HBM3 at 700 W.  The cap is cut to the fast solve's
+# 20,000 for hydro and aircond: hydro's bounds are then the same to the
+# last digit on the CPU (183.17174991757466, 187.62566102204437), its
+# wall 152 s there against 226 s
+CORPUS_CERTIFY_OPTIONS = {"certify_max_iters": 20000}
+# run_all.py's ieee14 row at 5 of its 10 iterations (10 until the
+# script ran over its limit on a slower host)
+CORPUS_ACOPF3_ITERS = 5
+CORPUS_ACOPF3_ARGV = ["--branching-factors", "3,2,2", "--max-iterations",
+                      str(CORPUS_ACOPF3_ITERS), "--default-rho", "5",
+                      "--case", "ieee14", "--lagrangian", "--xhatshuffle"]
+# run_all.py's default acopf3 row (the synthetic 5-bus grid, (2,2)),
+# whose (4, 39, 72) system takes the register tile with a nonzero qs
+CORPUS_ACOPF3_22_ARGV = ["--branching-factors", "2,2", "--max-iterations",
+                         "5", "--default-rho", "5", "--lagrangian",
+                         "--xhatshuffle"]
+# run_all.py's two-stage rows: (module, --num-scens, run_all.py's
+# --max-iterations); run here at CORPUS_2STAGE_ITERS
+CORPUS_2STAGE = (("sizes", 3, 5), ("apl1p", 4, 30), ("battery", 8, 30),
+                 ("netdes", 5, 30), ("gbd", 10, 30), ("usar", 3, 25))
+CORPUS_2STAGE_ITERS = 5
+# bound tolerances of the corpus wheels, relative: an f32 wheel's bounds
+# carry the f32 eps floor (1.19e-5) of its solves; the wheel_row bracket
+# (f64 EF against an f32 wheel) uses 1e-5 too.  Outer may exceed inner
+# by CORPUS_CROSS_TOL_REL: both come from solves at solver_eps 1e-6 with
+# a 10 x eps residual test (acopf3's QP bounds cross by ~1.6e-5 on the
+# CPU in f64)
+CORPUS_BRACKET_TOL_REL = 1e-5
+CORPUS_CROSS_TOL_REL = 1e-4
+# the corpus phase, the uc fallback pass, sslp, the golden and the
+# compact phase run in a second process (this script with this flag),
+# which reads the true_size phase's Iter0 line from SECOND_PROCESS_IN;
+# its lines go to SECOND_PROCESS_OUT until main() copies them to its
+# own output; one still running after SECOND_PROCESS_TIMEOUT_S is
+# killed and fails the script; it runs at this CPU niceness
+SECOND_PROCESS_FLAG = "--second-process"
+SECOND_PROCESS_OUT = os.path.join("build", "second_process.jsonl")
+SECOND_PROCESS_IN = os.path.join("build", "second_process_in.json")
+SECOND_PROCESS_TIMEOUT_S = 900
+SECOND_PROCESS_NICE = 10
+# the farmer creator path's size (SPBase(scenario_creator=...) against
+# build_batch)
+CORPUS_CREATOR_S, CORPUS_CREATOR_CM = 100, 10
+# the plain hydro PH run of tests/test_hydro_multistage.py:98-112 (its
+# goldens: trivial bound 180, E[obj] 190 at 2 significant figures)
+HYDRO_GOLDEN_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 100,
+                     "convthresh": 1e-6, "pdhg_eps": 1e-8,
+                     "pdhg_max_iters": 40000}
 
 # converged-scenario compaction (pdhg_compact_threshold): the value of
 # the bench's BENCH_COMPACT example (bench.py:1280-1285), and the width
@@ -554,27 +666,13 @@ def measure_form(form, A, vec, dname, peak, bw, peak_name, n_sm):
 def uc_solver_space_inputs(dtype):
     """The chunk's inputs as PDHGSolver builds them for UC at the
     bench's fallback size (S=UC_FALLBACK_S, fleet_multiplier=2, H=6):
-    the shared (1, 174, 114) matrix of its Ruiz-scaled prep, cold start,
-    omega=1."""
+    the shared (1, 174, 114) matrix of its Ruiz-scaled prep."""
     import torch
 
     from mpisppy_tpu_torch.models import uc
-    from mpisppy_tpu_torch.ops.pdhg import prepare_batch
-    b = uc.build_batch(UC_FALLBACK_S, **UC_FALLBACK,
-                       dtype=np.float32 if dtype == torch.float32
-                       else np.float64)
-    p = prepare_batch(b.A, b.row_lo, b.row_hi)
-    dc = p.d_col
-    qs = b.qdiag * dc * dc
-    lbs = b.lb / dc
-    ubs = torch.where(torch.isfinite(b.ub), b.ub / dc, b.ub)
-    x = 0.5 * (lbs + ubs)            # UC's boxes are all finite
-    y = torch.zeros_like(p.row_lo)
-    tau = 0.9 / (p.anorm + 0.9 * qs.amax(dim=1))
-    sigma = (0.9 / p.anorm).expand(tau.shape)
-    vec = [t.contiguous() for t in (b.c * dc, qs, lbs, ubs, p.row_lo,
-                                    p.row_hi, x, y, tau, sigma)]
-    return [p.A.contiguous()] + vec
+    return model_solver_space_inputs(uc.build_batch(
+        UC_FALLBACK_S, **UC_FALLBACK,
+        dtype=np.float32 if dtype == torch.float32 else np.float64))
 
 
 def kernel_phase(name):
@@ -638,6 +736,7 @@ def kernel_phase(name):
         row["case"] = "compacted_slab"
         rows[(form + "_compacted", "float32")] = row
         emit({"phase": "kernel", **row})
+    rows.update(corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
     return rows
 
 
@@ -899,7 +998,8 @@ def true_size_phase(name, split_gap):
            "M": M, "N": N, "dtype": "float32", "split_native": True,
            "cut": (None if TRUE_S == 1000 else
                    f"S cut from 1000 to {TRUE_S} (125 until the driver "
-                   f"phase needed the time) to stay well inside the "
+                   f"phase, 64 until the corpus phase needed the time) "
+                   f"to stay well inside the "
                    f"smoke's time limit; crops_multiplier, pdhg_eps and "
                    f"pdhg_max_iters as the bench"),
            "options_beyond_the_bench": {"iter0_infeasibility_ok": True},
@@ -1258,12 +1358,16 @@ def uc_cuts():
     cuts = {}
     for key, got, bench in (("S", UC_S, 1000),
                             ("ph_iterations", UC_PH_ITERS, 25),
-                            ("max_sweeps", UC_SWEEPS, 8)):
+                            ("max_sweeps", UC_SWEEPS, 8),
+                            ("ef_max_iters", UC_EF_ITERS, 100000)):
         if got != bench:
             cuts[key] = {"bench": bench, "here": got}
     # the depths before the driver phase needed the time
     cuts["S"]["before the driver phase"] = 250
+    cuts["S"]["before the corpus phase"] = 125
     cuts["ph_iterations"]["before the driver phase"] = 10
+    cuts["ph_iterations"]["before the corpus phase"] = 6
+    cuts["ph_iterations"]["before the script ran over its limit"] = 5
     return cuts
 
 
@@ -1348,7 +1452,8 @@ def uc_phase():
           "incumbent")
     wall = time.time() - t0
     k0 = pdhg_chunk.launches
-    ef_b, ef_s = timed("ef_dual_bound", lambda: ef_dual_bound(b, names))
+    ef_b, ef_s = timed("ef_dual_bound", lambda: ef_dual_bound(
+        b, names, max_iters=UC_EF_ITERS))
     ef_step = steps[-1]
     check(pdhg_chunk.launches == k0, "the consensus EF solve launched "
           "the chunk kernel")
@@ -1431,10 +1536,12 @@ def uc_fallback_pass():
 def ef_lp_oracle(b):
     """The LP optimum of the batch's extensive form by HiGHS
     (scipy.optimize.linprog), assembled from the batch's arrays in
-    float64: one copy of the nonant columns shared by every scenario
-    (two-stage, one tree node), each scenario's other columns its own,
-    the objective weighted by the scenario probabilities.  A plain
-    reference, independent of the PDHG solver."""
+    float64: one column per (tree node, nonant slot), shared by the
+    scenarios through that node (`tree.node_of`; a two-stage batch has
+    one node, so one copy of the nonant columns for all scenarios), each
+    scenario's other columns its own, the objective weighted by the
+    scenario probabilities.  A plain reference, independent of the PDHG
+    solver.  Returns (objective, number of EF columns)."""
     import scipy.sparse as sp
     from scipy.optimize import linprog
 
@@ -1445,15 +1552,30 @@ def ef_lp_oracle(b):
     rlo, rhi, prob = host(b.row_lo), host(b.row_hi), host(b.prob)
     S, M, N = A.shape
     na = b.nonant_idx.cpu().numpy()
+    node_of = b.tree.node_of.cpu().numpy()
     rest = np.setdiff1d(np.arange(N), na)
     K, R = na.size, rest.size
-    blocks, cost = [], [np.zeros(K)]
+    # the shared columns: one per (node, slot) pair that occurs
+    pairs = {}
     for s in range(S):
-        row = [sp.csr_matrix(A[s][:, na])] + [None] * S
+        for j in range(K):
+            pairs.setdefault((int(node_of[s, j]), j), len(pairs))
+    P = len(pairs)
+    col = np.array([[pairs[(int(node_of[s, j]), j)] for j in range(K)]
+                    for s in range(S)])
+    cost = np.zeros(P + S * R)
+    lo_sh, hi_sh = np.full(P, -np.inf), np.full(P, np.inf)
+    blocks = []
+    for s in range(S):
+        sel = sp.csr_matrix((np.ones(K), (np.arange(K), col[s])),
+                            shape=(K, P))
+        row = [sp.csr_matrix(A[s][:, na]) @ sel] + [None] * S
         row[1 + s] = sp.csr_matrix(A[s][:, rest])
         blocks.append(row)
-        cost[0] += prob[s] * c[s, na]
-        cost.append(prob[s] * c[s, rest])
+        np.add.at(cost, col[s], prob[s] * c[s, na])
+        cost[P + s * R:P + (s + 1) * R] = prob[s] * c[s, rest]
+        np.maximum.at(lo_sh, col[s], lb[s, na])
+        np.minimum.at(hi_sh, col[s], ub[s, na])
     big = sp.bmat(blocks, format="csr")
     lo, hi = rlo.reshape(-1), rhi.reshape(-1)
     eq = lo == hi
@@ -1461,15 +1583,13 @@ def ef_lp_oracle(b):
     dn = ~eq & np.isfinite(lo)
     A_ub = sp.vstack([big[up], -big[dn]], format="csr")
     b_ub = np.concatenate([hi[up], -lo[dn]])
-    bounds = ([(float(np.max(lb[:, j])), float(np.min(ub[:, j])))
-               for j in na]
+    bounds = (list(zip(lo_sh.tolist(), hi_sh.tolist()))
               + [(float(lb[s, j]), float(ub[s, j]))
                  for s in range(S) for j in rest])
-    res = linprog(np.concatenate(cost), A_ub=A_ub, b_ub=b_ub,
-                  A_eq=big[eq], b_eq=lo[eq], bounds=bounds,
-                  method="highs")
+    res = linprog(cost, A_ub=A_ub, b_ub=b_ub, A_eq=big[eq], b_eq=lo[eq],
+                  bounds=bounds, method="highs")
     check(res.status == 0, f"HiGHS failed on the EF LP: {res.message}")
-    return float(res.fun) + float(np.sum(prob * host(b.obj_const))), K + S * R
+    return float(res.fun) + float(np.sum(prob * host(b.obj_const))), P + S * R
 
 
 def sslp_phase():
@@ -1848,7 +1968,10 @@ def wheel_phase():
              "options": dict(SPLIT_OPTS, PHIterLimit=WHEEL_SPLIT_PH_ITERS),
              "cuts": {"PHIterLimit": {"command line": cfg.max_iterations,
                                       "here": WHEEL_SPLIT_PH_ITERS,
-                                      "before the driver phase": 20}},
+                                      "before the driver phase": 20,
+                                      "before the corpus phase": 8,
+                                      "before the script ran over its "
+                                      "limit": 5}},
              "s_per_superstep_before_the_cut": "5.48 (PHIterLimit 20)",
              **row}
     emit(out_b)
@@ -2259,6 +2382,503 @@ def driver_fixer():
             "launches_by_form": launched}
 
 
+# ---- the model corpus ----------------------------------------------------
+
+def launch_variants():
+    """launch_table() with the kernel variant (where A is read from:
+    registers, shared or global memory) of each row."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    rows = launch_table()
+    for r in rows:
+        r["variant"] = pdhg_chunk.pick_variant(
+            r["M"], r["N"], getattr(torch, r["dtype"]),
+            pdhg_chunk.smem_optin()).source
+    return rows
+
+
+def model_solver_space_inputs(b):
+    """The chunk's inputs as PDHGSolver builds them for batch `b`, whose
+    boxes are all finite: the port's Ruiz-scaled prep (dense, or shared
+    for a (1, M, N) matrix), cold duals, the box midpoint as the primal
+    start, omega=1; qs is qdiag scaled."""
+    import torch
+
+    from mpisppy_tpu_torch.ops.pdhg import prepare_batch
+    check(bool(torch.isfinite(b.lb).all() and torch.isfinite(b.ub).all()),
+          "model_solver_space_inputs needs finite boxes")
+    p = prepare_batch(b.A, b.row_lo, b.row_hi)
+    dc = p.d_col
+    qs = b.qdiag * dc * dc
+    lbs = b.lb / dc
+    ubs = b.ub / dc
+    x = 0.5 * (lbs + ubs)
+    y = torch.zeros_like(p.row_lo)
+    tau = 0.9 / (p.anorm + 0.9 * qs.amax(dim=1))
+    sigma = (0.9 / p.anorm).expand(tau.shape)
+    vec = [t.contiguous() for t in (b.c * dc, qs, lbs, ubs, p.row_lo,
+                                    p.row_hi, x, y, tau, sigma)]
+    return [p.A.contiguous()] + vec
+
+
+# the dense kernel's variants that the corpus puts on a path: (row name,
+# batch builder (dtype) -> batch, the variant expected in f32 and f64)
+def _corpus_kernel_cases():
+    from mpisppy_tpu_torch.models import acopf3, sizes, usar
+    return (
+        ("dense_shared_sizes", lambda dt: sizes.build_batch(3, dtype=dt),
+         ("shared", "shared")),
+        ("dense_global_usar", lambda dt: usar.build_batch(3, dtype=dt),
+         ("global", "global")),
+        ("qs_ieee14", lambda dt: acopf3.build_batch(
+            (3, 2, 2), case="ieee14", dtype=dt), ("shared", "global")),
+        ("qs_registers_acopf3_22", lambda dt: acopf3.build_batch(
+            (2, 2), dtype=dt), ("registers", "registers")))
+
+
+def corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
+    """The dense kernel at the corpus's shapes against its plain version
+    (`fused_chunk_reference`), f32 and f64, on solver-space inputs from
+    the port's own prep of each model's batch: A in shared memory
+    (sizes), in global memory (usar), and a nonzero qs with A in shared
+    or global memory (acopf3 ieee14) and in registers (acopf3 (2,2))."""
+    import torch
+    rows = {}
+    for case, build, expect in _corpus_kernel_cases():
+        for (store, peak), want in zip(((torch.float32, f32_peak),
+                                        (torch.float64, f64_peak)), expect):
+            dname = str(store).replace("torch.", "")
+            args = model_solver_space_inputs(
+                build(np.float32 if store == torch.float32 else np.float64))
+            A, vec = args[0], args[1:]
+            if case.startswith("qs_"):
+                check(int((vec[1] != 0).sum()) > 0,
+                      f"{case}: the scaled qs is all zero")
+            row = measure_form("dense", A, vec, dname, peak, bw, peak_name,
+                               n_sm)
+            check(row["variant"]["source"] == want,
+                  f"{case} {dname} took {row['variant']}, not A in {want}")
+            row["case"] = case
+            row["nonzero_qs"] = int((vec[1] != 0).sum())
+            rows[(case, dname)] = row
+            emit({"phase": "kernel", **row})
+    return rows
+
+
+def _corpus_run(module, argv, progname, dtype, inner_required=True,
+                options=None):
+    """One examples/run_all.py row through `amalgamator.from_module`,
+    as a user runs it (interleaved wheel, or --EF), on the card, with
+    the counts zeroed just before: its common line fields.  A wheel's
+    outer bound must be finite and at most the inner bound plus
+    CORPUS_CROSS_TOL_REL; the inner bound must be finite unless
+    `inner_required` is False (a multistage wheel whose xhat candidates
+    are all infeasible within its iterations reports +inf).  `options`
+    are laid over the flags' options (what no flag carries)."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+    from mpisppy_tpu_torch.utils import amalgamator, config
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    ama = amalgamator.from_module(module, _driver_cfg(config, options),
+                                  args=argv,
+                                  progname=progname,
+                                  batch_kwargs={"dtype": dtype})
+    ama.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    hub = ama.wheel.spcomm if ama.wheel is not None else None
+    b = ama.ef.batch if hub is None else hub.opt.batch
+    check(b.c.device.type == "cuda" and b.c.dtype == getattr(
+        torch, np.dtype(dtype).name), f"{progname}: the batch is "
+          f"{b.c.dtype} on {b.c.device}")
+    line = {"argv": argv, "dtype": np.dtype(dtype).name,
+            "S": b.num_scens, "M": b.num_rows, "N": b.num_vars,
+            "num_nodes": b.tree.num_nodes,
+            "nonzero_qdiag": int((b.qdiag != 0).sum()),
+            "wall_s": wall, "wall_build_s": ama.wall_build,
+            "wall_run_s": ama.wall_run, "launches": launch_variants(),
+            "matmul_chunks": pdhg.matmul_chunks,
+            "consensus_chunks": pdhg.consensus_chunks}
+    if hub is None:
+        line.update(ef_obj=ama.EF_Obj, ef_dual_bound=ama.best_outer_bound,
+                    ef_iters=int(ama.ef._result.iters))
+        return ama, line
+    outer, inner = float(ama.best_outer_bound), float(ama.best_inner_bound)
+    check(hub.failed_spokes == [] and hub.finalize_failures == [],
+          f"{progname}: spokes failed: {hub.failed_spokes} "
+          f"{hub.finalize_failures}")
+    check(np.isfinite(outer) and (np.isfinite(inner) or (
+        not inner_required and inner == np.inf)),
+          f"{progname}: bounds not finite: outer {outer}, inner {inner}")
+    check(outer <= inner + CORPUS_CROSS_TOL_REL * abs(inner),
+          f"{progname}: outer bound {outer} above inner {inner}")
+    line.update(ph_iterations=hub.current_iteration(), best_outer=outer,
+                best_inner=inner,
+                rel_gap=abs(inner - outer) / max(1.0, abs(inner)),
+                launches_by_form=pdhg_chunk.launches_by("form/dtype"))
+    return ama, line
+
+
+def _certify_cut():
+    return {"certify_max_iters": {
+        "default": 100000,
+        "here": CORPUS_CERTIFY_OPTIONS["certify_max_iters"]}}
+
+
+def _bracket(line, opt, tol_rel, what):
+    tol = tol_rel * abs(opt)
+    check(line["best_outer"] <= opt + tol and line["best_inner"] >= opt - tol,
+          f"{what}: bounds [{line['best_outer']}, {line['best_inner']}] "
+          f"do not bracket {opt}")
+
+
+def _node_spread(ph):
+    """Per stage, the largest spread of x̄ over the scenarios of one
+    tree node (0.0: x̄ is one value per (node, slot))."""
+    from mpisppy_tpu_torch.device import host
+    xbar = host(ph.state.xbar)
+    node_of = host(ph.batch.tree.node_of)
+    stage_of = np.asarray(ph.batch.tree.stage_of)
+    out = {}
+    for st in np.unique(stage_of):
+        cols = np.where(stage_of == st)[0]
+        worst = 0.0
+        for n in np.unique(node_of[:, cols]):
+            rows = np.where((node_of[:, cols] == n).all(axis=1))[0]
+            blk = xbar[np.ix_(rows, cols)]
+            worst = max(worst, float(np.max(np.abs(blk - blk[0]))))
+        out[f"stage{int(st)}"] = worst
+    return out
+
+
+def round_pos_sig(x, sig=2):
+    """tests/utils.py of the reference: x at `sig` significant figures."""
+    return round(x, -int(np.floor(np.log10(abs(x)))) + (sig - 1))
+
+
+def corpus_hydro():
+    """hydro (3,3) in f64, run_all.py's row (its iterations cut to
+    CORPUS_HYDRO_ITERS): the wheel's bounds bracket
+    the f64 EF optimum (the amalgamator's --EF), which agrees with the
+    multistage HiGHS oracle; plain PH with the JAX package's golden
+    options gives trivial bound 180 and E[obj] 190."""
+    import torch
+
+    from mpisppy_tpu_torch.models import hydro
+    from mpisppy_tpu_torch.opt.ph import PH
+    ama, line = _corpus_run(hydro, CORPUS_HYDRO_ARGV, "hydro_cylinders",
+                            np.float64, options=CORPUS_CERTIFY_OPTIONS)
+    ef, ef_line = _corpus_run(hydro, ["--branching-factors", "3,3", "--EF",
+                                      "--EF-solver-eps", "1e-8"],
+                              "hydro_ef", np.float64)
+    highs, n_vars = ef_lp_oracle(ef.ef.batch)
+    opt = ef.EF_Obj
+    check(abs(opt - highs) <= 1e-6 * abs(highs),
+          f"hydro EF {opt} is off the HiGHS optimum {highs}")
+    _bracket(line, opt, CORPUS_BRACKET_TOL_REL, "corpus_hydro")
+    spread = _node_spread(ama.wheel.spcomm.opt)
+    check(max(spread.values()) == 0.0, f"hydro x̄ varies in a node: {spread}")
+    t = time.time()
+    ph = PH(dict(HYDRO_GOLDEN_OPTS), hydro.scenario_names_creator(9),
+            batch=hydro.build_batch())
+    conv, eobj, tbound = ph.ph_main()
+    inner, feas = ph.evaluate_xhat(ph.state.xbar)
+    torch.cuda.synchronize()
+    golden = {"trivial_bound": tbound, "eobj": eobj, "xhat_inner": inner,
+              "xhat_feasible": feas, "conv": conv,
+              "ph_iterations": int(ph.state.it), "wall_s": time.time() - t}
+    check(round_pos_sig(tbound) == 180 and round_pos_sig(eobj) == 190
+          and feas and round_pos_sig(inner) == 190,
+          f"hydro goldens (180, 190): {golden}")
+    out = {"phase": "corpus_hydro", **line, "ef": ef_line,
+           "ef_optimum_f64": opt, "highs_optimum": highs,
+           "highs_ef_vars": n_vars,
+           "rel_err_vs_highs": abs(opt - highs) / abs(highs),
+           "bracket_tol_rel": CORPUS_BRACKET_TOL_REL,
+           "xbar_spread_in_node": spread,
+           "cuts": dict(_certify_cut(), **{"--max-iterations": {
+               "run_all.py": 40, "here": CORPUS_HYDRO_ITERS}}),
+           "golden_ph": golden}
+    emit(out)
+    return out
+
+
+def corpus_aircond():
+    """aircond (10,10,10) in f32: S=1000, 4 stages, 111 non-leaf nodes,
+    the full published parameter table; the bounds bracket the HiGHS EF
+    optimum; x̄ of stages 2 and 3 is one value per node."""
+    from mpisppy_tpu_torch.models import aircond
+    ama, line = _corpus_run(aircond, CORPUS_AIRCOND_ARGV,
+                            "aircond_cylinders", np.float32,
+                            inner_required=False,
+                            options=CORPUS_CERTIFY_OPTIONS)
+    from mpisppy_tpu_torch.scenario_tree import MultistageTree
+    tree = MultistageTree([int(f) for f in CORPUS_AIRCOND_ARGV[1].split(",")])
+    b = ama.wheel.spcomm.opt.batch
+    check(b.num_scens == tree.num_scens
+          and b.tree.num_nodes == tree.num_nodes,
+          f"aircond tree: S={b.num_scens}, {b.tree.num_nodes} nodes")
+    t = time.time()
+    highs, n_vars = ef_lp_oracle(b)
+    highs_s = time.time() - t
+    _bracket(line, highs, CORPUS_BRACKET_TOL_REL, "corpus_aircond")
+    spread = _node_spread(ama.wheel.spcomm.opt)
+    check(spread["stage2"] == 0.0 and spread["stage3"] == 0.0,
+          f"aircond x̄ varies in a node: {spread}")
+    out = {"phase": "corpus_aircond", **line, "highs_optimum": highs,
+           "highs_ef_vars": n_vars, "highs_s": highs_s,
+           "bracket_tol_rel": CORPUS_BRACKET_TOL_REL,
+           "xbar_spread_in_node": spread,
+           "cuts": dict(_certify_cut(), **{"--max-iterations": {
+               "before the script ran over its limit": 10,
+               "here": CORPUS_AIRCOND_ITERS}})}
+    emit(out)
+    return out
+
+
+def corpus_acopf3():
+    """acopf3 on the IEEE 14-bus case, (3,2,2), in f32: a nonzero qdiag
+    on the card; its bounds bracket the port's own f64 EF objective (a
+    QP: HiGHS's linprog cannot be the oracle).  Then run_all.py's
+    default row (the 5-bus grid, (2,2)) cut to 5 iterations: the
+    register tile with a nonzero qs."""
+    from mpisppy_tpu_torch.models import acopf3
+    ama, line = _corpus_run(acopf3, CORPUS_ACOPF3_ARGV, "acopf3_cylinders",
+                            np.float32, inner_required=False)
+    check(line["nonzero_qdiag"] > 0, "acopf3 ieee14 has no qdiag")
+    ef, ef_line = _corpus_run(acopf3, CORPUS_ACOPF3_ARGV[:2] + [
+        "--case", "ieee14", "--EF", "--EF-solver-eps", "1e-7"],
+        "acopf3_ef", np.float64)
+    opt = ef.EF_Obj
+    _bracket(line, opt, CORPUS_BRACKET_TOL_REL, "corpus_acopf3")
+    _, line22 = _corpus_run(acopf3, CORPUS_ACOPF3_22_ARGV,
+                            "acopf3_cylinders", np.float32)
+    out = {"phase": "corpus_acopf3", **line, "ef": ef_line,
+           "cuts": {"--max-iterations": {"run_all.py": 10,
+                                         "here": CORPUS_ACOPF3_ITERS}},
+           "ef_optimum_f64": opt, "bracket_tol_rel": CORPUS_BRACKET_TOL_REL,
+           "grid_5bus_22": line22}
+    emit(out)
+    return out
+
+
+def corpus_2stage():
+    """run_all.py's two-stage rows (sizes, apl1p, battery, netdes, gbd,
+    usar) in f32 with --max-iterations cut to CORPUS_2STAGE_ITERS:
+    finite bounds, outer <= inner; then each family's --EF in f64
+    within 1e-6 of HiGHS on the same EF LP (for the integer families
+    their LP relaxation, which is what the port solves)."""
+    import importlib
+    out = {"phase": "corpus_2stage", "rows": {}}
+    for name, n, iters in CORPUS_2STAGE:
+        mod = importlib.import_module(f"mpisppy_tpu_torch.models.{name}")
+        argv = ["--num-scens", str(n), "--max-iterations",
+                str(CORPUS_2STAGE_ITERS), "--default-rho", "1",
+                "--lagrangian", "--xhatshuffle"]
+        _, line = _corpus_run(mod, argv, f"{name}_cylinders", np.float32)
+        ef, ef_line = _corpus_run(mod, ["--num-scens", str(n), "--EF"],
+                                  f"{name}_ef", np.float64)
+        highs, n_vars = ef_lp_oracle(ef.ef.batch)
+        rel = abs(ef.EF_Obj - highs) / max(abs(highs), 1e-9)
+        check(rel <= 1e-6, f"{name} EF {ef.EF_Obj} is {rel:.2e} from the "
+              f"HiGHS optimum {highs}")
+        line.update(cut={"--max-iterations": {"run_all.py": iters,
+                                              "here": CORPUS_2STAGE_ITERS}},
+                    ef=ef_line, highs_optimum=highs, highs_ef_vars=n_vars,
+                    ef_rel_err_vs_highs=rel,
+                    integer=bool(ef.ef.batch.integer_mask.any()))
+        out["rows"][name] = line
+        emit({"phase": f"corpus_2stage_{name}", **line})
+    return out
+
+
+def corpus_creator():
+    """SPBase(scenario_creator=...) on the card against the vectorized
+    builders, exactly: hydro's creator against hydro.build_batch, and
+    farmer's at S=CORPUS_CREATOR_S, cm=CORPUS_CREATOR_CM against
+    build_batch(split=False); the creator path's build wall beside the
+    builder's."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer, hydro
+    from mpisppy_tpu_torch.spbase import SPBase
+
+    def same(a, b):
+        bad = [f for f in ("c", "qdiag", "A", "row_lo", "row_hi", "lb", "ub",
+                           "obj_const", "nonant_idx", "integer_mask",
+                           "stage_cost_c")
+               if not torch.equal(getattr(a, f), getattr(b, f))]
+        bad += [f"tree.{f}" for f in ("node_of", "prob")
+                if not torch.equal(getattr(a.tree, f), getattr(b.tree, f))]
+        if a.tree.num_nodes != b.tree.num_nodes:
+            bad.append("tree.num_nodes")
+        return bad
+
+    out = {"phase": "corpus_creator"}
+    S, cm = CORPUS_CREATOR_S, CORPUS_CREATOR_CM
+    for name, names, creator, kw, build in (
+            ("hydro", hydro.scenario_names_creator(9),
+             hydro.scenario_creator, {"branching_factors": [3, 3]},
+             hydro.build_batch),
+            ("farmer", farmer.scenario_names_creator(S),
+             farmer.scenario_creator,
+             {"crops_multiplier": cm, "num_scens": S},
+             lambda: farmer.build_batch(S, crops_multiplier=cm,
+                                        split=False))):
+        torch.cuda.synchronize()
+        t = time.time()
+        sb = SPBase({}, names, scenario_creator=creator,
+                    scenario_creator_kwargs=kw)
+        torch.cuda.synchronize()
+        t_creator = time.time() - t
+        t = time.time()
+        ref = build()
+        torch.cuda.synchronize()
+        t_build = time.time() - t
+        check(sb.batch.c.device.type == "cuda",
+              f"{name}: the creator path's batch is on {sb.batch.c.device}")
+        bad = same(sb.batch, ref)
+        check(not bad, f"{name}: the creator path differs from build_batch "
+              f"in {bad}")
+        out[name] = {"S": sb.batch.num_scens, "M": sb.batch.num_rows,
+                     "N": sb.batch.num_vars,
+                     "num_nodes": sb.batch.tree.num_nodes,
+                     "creator_build_s": t_creator, "build_batch_s": t_build,
+                     "equal": True}
+    emit(out)
+    return out
+
+
+def corpus_phase():
+    """The model corpus on the card: each sub-run through
+    the users' entry point, one JSON line each; the launches of every
+    sub-run summed by (form, M, N, dtype) for the kernels line."""
+    import collections
+    t0 = time.time()
+    subs = {}
+    for fn in (corpus_creator, corpus_hydro, corpus_aircond, corpus_acopf3,
+               corpus_2stage):
+        t = time.time()
+        subs[fn.__name__] = fn()
+        subs[fn.__name__]["s"] = time.time() - t
+    lines = [subs["corpus_hydro"], subs["corpus_hydro"]["ef"],
+             subs["corpus_aircond"], subs["corpus_acopf3"],
+             subs["corpus_acopf3"]["ef"],
+             subs["corpus_acopf3"]["grid_5bus_22"]]
+    for row in subs["corpus_2stage"]["rows"].values():
+        lines += [row, row["ef"]]
+    launched = collections.Counter()
+    for ln in lines:
+        for r in ln["launches"]:
+            launched[(r["form"], r["M"], r["N"], r["dtype"])] += r["launches"]
+    out = {"phase": "corpus", "s": time.time() - t0,
+           "sub_run_s": {k: v["s"] for k, v in subs.items()},
+           "launches_by_form_shape_dtype": [
+               {"form": k[0], "M": k[1], "N": k[2], "dtype": k[3],
+                "launches": n} for k, n in sorted(launched.items())]}
+    emit(out)
+    out["launched"] = launched
+    return out
+
+
+def start_second_process(true_iter0):
+    """Start the second process on the same card (this script with
+    SECOND_PROCESS_FLAG, see second_process), its lines going to
+    SECOND_PROCESS_OUT; the true_size phase's Iter0 line
+    (`true_iter0`, for the compact phase) goes to it in
+    SECOND_PROCESS_IN.  Its phases are host-bound; run beside the main
+    process's later phases they take little time of their own from the
+    script's limit.  It runs at a lower CPU priority with one host
+    thread per library, so that the main process keeps its cores."""
+    os.makedirs(os.path.dirname(SECOND_PROCESS_OUT), exist_ok=True)
+    with open(SECOND_PROCESS_IN, "w") as fh:
+        json.dump(true_iter0, fh)
+    env = dict(os.environ, **{k: "1" for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+    with open(SECOND_PROCESS_OUT, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), SECOND_PROCESS_FLAG,
+             str(os.getpid())], stdout=fh, env=env)
+    return proc, time.time()
+
+
+def join_second_process(child):
+    """Wait for the second process, copy its lines to this process's
+    output, and return its lines by phase; the `corpus` line gains
+    `launched`, the launches of the corpus sub-runs by (form, M, N,
+    dtype).  Fails if the process failed or a phase's line is
+    missing."""
+    import collections
+    proc, t0 = child
+    t = time.time()
+    try:
+        rc = proc.wait(timeout=SECOND_PROCESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    waited = time.time() - t
+    by_phase = {}
+    with open(SECOND_PROCESS_OUT) as fh:
+        for line in fh:
+            sys.stdout.write(line)
+            if line.startswith('{"phase": '):
+                d = json.loads(line)
+                by_phase[d["phase"]] = d
+    sys.stdout.flush()
+    check(rc == 0, f"the second process ended with {rc} (stderr above)")
+    for phase in ("corpus", "uc_fallback", "sslp", "golden", "compact",
+                  "child"):
+        check(phase in by_phase, f"the second process printed no {phase} "
+              "line")
+    corpus = by_phase["corpus"]
+    corpus["launched"] = collections.Counter({
+        (r["form"], r["M"], r["N"], r["dtype"]): r["launches"]
+        for r in corpus["launches_by_form_shape_dtype"]})
+    by_phase["child"]["waited_s"] = waited
+    by_phase["child"]["until_joined_s"] = time.time() - t0
+    return by_phase
+
+
+def second_process(parent_pid):
+    """The second process of main(): the corpus phase, then the uc
+    fallback pass, sslp, the farmer-3 golden and the compact phase,
+    each as main() ran them before (counts zeroed just before each
+    path); the kernel library is the one main()'s build phase built.
+    Its last line is `child` with its wall.  It is killed when main()'s
+    process ends (PR_SET_PDEATHSIG), so that no run outlives the
+    script."""
+    import ctypes
+    import signal
+
+    import torch
+    t_all = time.time()
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)      # PR_SET_PDEATHSIG
+    check(os.getppid() == parent_pid, "the main process has ended")
+    check(torch.cuda.is_available(), "the second process sees no card")
+    os.nice(SECOND_PROCESS_NICE)
+    torch.set_num_threads(1)
+    from mpisppy_tpu_torch import disable_tictoc_output
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    disable_tictoc_output()
+    pdhg_chunk.load_library()
+    with open(SECOND_PROCESS_IN) as fh:
+        true_iter0 = json.load(fh)
+    for name, fn in (("corpus", corpus_phase),
+                     ("uc_fallback", uc_fallback_pass),
+                     ("sslp", sslp_phase), ("golden", golden_phase),
+                     ("compact", lambda: compact_phase(true_iter0))):
+        t = time.time()
+        fn()
+        emit({"phase": f"{name}_done", "s": time.time() - t})
+    emit({"phase": "child", "s": time.time() - t_all})
+    return 0
+
+
 def golden_phase():
     import torch
 
@@ -2314,27 +2934,43 @@ def main():
     t = time.time()
     ts = true_size_phase(name, sp["gap_loop"])
     emit({"phase": "true_size_done", "s": time.time() - t})
-    t = time.time()
-    cp = compact_phase(ts["iter0"])
-    emit({"phase": "compact_done", "s": time.time() - t})
+    # the corpus phase runs in a second process from here on, beside
+    # the phases below (the kernel rows and the phases above are timed
+    # alone on the card)
+    child = start_second_process(ts["iter0"])
+    try:
+        kernels_line = main_after_true_size(t_all, rows, sl, bx, sp, ts,
+                                            child)
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+    emit(kernels_line)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
+    """main()'s phases from uc on, the second process's join, and the
+    kernels line (returned)."""
     t = time.time()
     uc_phase()
     emit({"phase": "uc_done", "s": time.time() - t})
-    t = time.time()
-    ucf = uc_fallback_pass()
-    emit({"phase": "uc_fallback_done", "s": time.time() - t})
-    t = time.time()
-    sslp_phase()
-    emit({"phase": "sslp_done", "s": time.time() - t})
-    t = time.time()
-    golden_phase()
-    emit({"phase": "golden_done", "s": time.time() - t})
     t = time.time()
     wrow, wsplit = wheel_phase()
     emit({"phase": "wheel_done", "s": time.time() - t})
     t = time.time()
     drv, _, _ = driver_phase(wrow, wsplit)
     emit({"phase": "driver_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
+    second = join_second_process(child)
+    corpus, ucf, cp = (second[k] for k in ("corpus", "uc_fallback",
+                                            "compact"))
+    emit({"phase": "second_process_done", "s": second["child"]["s"],
+          "waited_s": second["child"]["waited_s"],
           "total_s": time.time() - t_all})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2410,13 +3046,37 @@ def main():
         check(entry["launches"] > 0, f"the {form} form launched no time "
               f"on its path")
         kernels.append(entry)
-    emit({"kernels": kernels})
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    # the dense form's variants that the corpus phase puts on a path,
+    # with their launches there (the dense form at the row's M, N)
+    rkeys = keys + ("variant", "nonzero_qs", "S", "M", "N")
+    for case, _, _ in _corpus_kernel_cases():
+        f32, f64 = rows[(case, "float32")], rows[(case, "float64")]
+        n32, n64 = (corpus["launched"][("dense", f32["M"], f32["N"], d)]
+                    for d in ("float32", "float64"))
+        entry = {
+            "name": f"pdhg_chunk_{case}", "route": "cuda",
+            "source": "mpisppy_tpu_torch/csrc/pdhg_chunk.cu",
+            "replaces": "mpisppy_tpu/ops/pallas_pdhg.py:106",
+            "launches": n32,
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a chunk of "
+                            "PDHG steps",
+            "form": "dense", "dtype": "float32",
+            "shape": [f32["S"], f32["M"], f32["N"]],
+            "variant_source": f32["variant"]["source"],
+            "share_of_bound": f32["share_of_bound"],
+            "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"],
+            "nonzero_qs": f32["nonzero_qs"],
+            "f64": {**{k: f64[k] for k in rkeys}, "launches": n64}}
+        check(n32 > 0, f"the dense form at {case}'s (M, N) = "
+              f"({f32['M']}, {f32['N']}) launched no time in f32 on the "
+              "corpus path")
+        kernels.append(entry)
+    return {"kernels": kernels}
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(second_process(int(sys.argv[2]))
+             if sys.argv[1:2] == [SECOND_PROCESS_FLAG] else main())

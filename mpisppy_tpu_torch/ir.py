@@ -12,17 +12,19 @@ JAX pytrees.  A batch's constraint operator takes one of four forms:
 dense per-scenario (S, M, N), shared (1, M, N), `SplitA` (a shared
 (M, N) block plus a sparse per-scenario delta) and `SparseSplitA`
 (the same with the shared block in sparse CSR storage).
-
-Not ported yet (ROADMAP queue A): `stack_scenarios` and
-`pad_scenarios`.
+`stack_scenarios` stacks single-scenario batches (the
+`scenario_creator` path) and `pad_scenarios` appends zero-probability
+dummy scenarios.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Any
 
+import numpy as np
 import torch
 
 from . import not_ported
@@ -365,3 +367,106 @@ def node_segment_sum(node_of, num_nodes):
         return z[flatid]
 
     return flatid, segsum
+
+
+def stack_scenarios(scens, scen_names=None):
+    """Stack single-scenario batches (S=1 each, e.g. from
+    `model.LinearModel.lower`) into one ScenarioBatch on their device
+    (ir.py:439-501 of the JAX package).  All must share (num_rows,
+    num_vars) and the nonant layout; the probabilities are divided by
+    their total, which is summed on the host with `math.fsum` (the
+    correctly rounded sum, so the result does not depend on the
+    device's reduction order: S scenarios of probability 1/S stack to
+    exactly the probabilities a vectorized builder writes)."""
+    if not scens:
+        raise ValueError("no scenarios to stack")
+    first = scens[0]
+    if any(s.num_vars != first.num_vars or s.num_rows != first.num_rows
+           for s in scens):
+        raise ValueError(
+            "all scenarios in a batch must share (num_rows, num_vars); "
+            "pad constraint rows with free bounds to equalize")
+    # the consensus average pairs slot j across scenarios (reference
+    # counterpart: _verify_nonant_lengths, spbase.py:150)
+    ref_idx = first.nonant_idx.cpu()
+    for s in scens[1:]:
+        if not torch.equal(s.nonant_idx.cpu(), ref_idx):
+            raise ValueError(
+                "all scenarios must declare the same nonant variable "
+                "layout (indices and order)")
+
+    def cat(field, dim=0):
+        return torch.cat([getattr(s, field) for s in scens], dim=dim)
+
+    prob = torch.cat([s.tree.prob for s in scens])
+    prob = prob / math.fsum(prob.tolist())
+    names = tuple(scen_names) if scen_names is not None else tuple(
+        n for s in scens for n in (s.tree.scen_names or ("?",) * s.num_scens))
+    tree = TreeInfo(
+        node_of=torch.cat([s.tree.node_of for s in scens]),
+        prob=prob,
+        num_nodes=max(s.tree.num_nodes for s in scens),
+        stage_of=first.tree.stage_of,
+        nonant_names=first.tree.nonant_names,
+        scen_names=names)
+    return ScenarioBatch(
+        c=cat("c"), qdiag=cat("qdiag"), A=cat("A"),
+        row_lo=cat("row_lo"), row_hi=cat("row_hi"),
+        lb=cat("lb"), ub=cat("ub"), obj_const=cat("obj_const"),
+        nonant_idx=first.nonant_idx,
+        integer_mask=cat("integer_mask"),
+        tree=tree,
+        stage_cost_c=None if first.stage_cost_c is None
+        else cat("stage_cost_c", dim=1),
+        var_names=first.var_names)
+
+
+def pad_scenarios(batch: ScenarioBatch, to: int) -> ScenarioBatch:
+    """The batch with `to - S` zero-probability dummy scenarios appended
+    (ir.py:504-570 of the JAX package), for layouts that need a given
+    scenario count.  Each pad is feasible by construction: free rows
+    and a unit box.  Pads get their own dummy tree node, so they join
+    no x̄ average (probability 0) and no EF consensus group.  A shared
+    matrix serves the pads as it is; a SplitA gives them zero deltas
+    (the shared matrix), harmless under free rows and probability 0."""
+    S = batch.num_scens
+    if to <= S:
+        return batch
+    padn = to - S
+
+    def padfield(v, fill=0.0):
+        pad = torch.full((padn,) + tuple(v.shape[1:]), fill,
+                         dtype=v.dtype, device=v.device)
+        return torch.cat([v, pad])
+
+    tree = batch.tree
+    new_tree = TreeInfo(
+        node_of=padfield(tree.node_of, tree.num_nodes),
+        prob=padfield(tree.prob, 0.0),
+        num_nodes=tree.num_nodes + 1,
+        stage_of=tree.stage_of,
+        nonant_names=tree.nonant_names,
+        scen_names=tree.scen_names + tuple(
+            f"_pad{i}" for i in range(padn)))
+    if isinstance(batch.A, SplitA):
+        # dataclasses.replace keeps a SparseSplitA sparse
+        A_pad = dataclasses.replace(batch.A, vals=padfield(batch.A.vals))
+    else:
+        A_pad = batch.A if batch.shared_A else padfield(batch.A)
+    scc = batch.stage_cost_c
+    return ScenarioBatch(
+        c=padfield(batch.c),
+        qdiag=padfield(batch.qdiag),
+        A=A_pad,
+        row_lo=padfield(batch.row_lo, -np.inf),
+        row_hi=padfield(batch.row_hi, np.inf),
+        lb=padfield(batch.lb),
+        ub=padfield(batch.ub, 1.0),
+        obj_const=padfield(batch.obj_const),
+        nonant_idx=batch.nonant_idx,
+        integer_mask=padfield(batch.integer_mask, False),
+        tree=new_tree,
+        stage_cost_c=None if scc is None else torch.cat(
+            [scc, scc.new_zeros((scc.shape[0], padn, scc.shape[2]))], 1),
+        var_names=batch.var_names,
+        model_meta=batch.model_meta)

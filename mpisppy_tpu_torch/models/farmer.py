@@ -21,9 +21,11 @@ The driver functions of `examples/farmer_cylinders.py`
 (`scenario_names_creator`, `inparser_adder`, `kw_creator`,
 `batch_creator`, `scenario_denouement`) are the JAX package's.
 
-Not ported yet (ROADMAP queue A): `scenario_source`, `export_corpus`
-(item 12) and the `scenario_creator` modelling path (item 9:
-`scenario_creator` raises).
+`scenario_creator` builds one scenario through `model.LinearModel`
+(the modelling path of `SPBase(scenario_creator=...)`).
+
+Not ported yet (ROADMAP queue A): `scenario_source` and
+`export_corpus` (item 12).
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..device import resolve_device
 from ..ir import ScenarioBatch, SplitA, TreeInfo
+from ..model import LinearModel
 
 INF = float("inf")
 
@@ -201,10 +203,48 @@ def build_batch(num_scens, crops_multiplier=1, use_integer=False,
 
 
 def scenario_creator(scenario_name, use_integer=False, sense=1,
-                     crops_multiplier=1, num_scens=None, seedoffset=0):
-    """The single-scenario LinearModel path of the JAX package; the
-    port builds batches with `build_batch` only."""
-    raise not_ported("farmer.scenario_creator (the LinearModel path)", 9)
+                     crops_multiplier=1, num_scens=None, seedoffset=0,
+                     device=None):
+    """One scenario through the declarative LinearModel API (the JAX
+    package's farmer.py:256, after the reference's farmer.py:25-91), on
+    `device` (default: the CUDA device).  `build_batch` is the fast
+    path; stacked, these scenarios equal its dense (split=False)
+    arrays."""
+    scennum = int("".join(ch for ch in scenario_name if ch.isdigit()) or 0)
+    nc = 3 * crops_multiplier
+    y = scenario_yields(scennum, crops_multiplier, seedoffset)
+    m = LinearModel(sense=sense)
+    total = 500.0 * crops_multiplier
+    ac = m.add_vars("DevotedAcreage", nc, lb=0.0, ub=total,
+                    integer=use_integer)
+    # the implied finite bounds of scenario_block
+    sub = m.add_vars("QuantitySubQuotaSold", nc, lb=0.0,
+                     ub=np.minimum(np.tile(_QUOTA, crops_multiplier),
+                                   2.0 * y * total))
+    sup = m.add_vars("QuantitySuperQuotaSold", nc, lb=0.0,
+                     ub=2.0 * y * total)
+    pur = m.add_vars("QuantityPurchased", nc, lb=0.0,
+                     ub=2.0 * np.tile(_CATTLE_REQ + 1.0, crops_multiplier))
+    req = np.tile(_CATTLE_REQ, crops_multiplier)
+    for i in range(nc):
+        m.add_constr({ac[i]: y[i], pur[i]: 1.0, sub[i]: -1.0,
+                      sup[i]: -1.0}, lo=req[i])
+    for i in range(nc):
+        m.add_constr({sub[i]: 1.0, sup[i]: 1.0, ac[i]: -y[i]}, hi=0.0)
+    m.add_constr({ac[i]: 1.0 for i in range(nc)}, hi=total)
+    m.add_cost(1, {ac[i]: np.tile(_PLANTING_COST, crops_multiplier)[i]
+                   for i in range(nc)})
+    m.add_cost(2, {
+        **{pur[i]: np.tile(_PURCHASE_PRICE, crops_multiplier)[i]
+           for i in range(nc)},
+        **{sub[i]: -np.tile(_SUB_PRICE, crops_multiplier)[i]
+           for i in range(nc)},
+        **{sup[i]: -np.tile(_SUPER_PRICE, crops_multiplier)[i]
+           for i in range(nc)},
+    })
+    m.set_nonants([ac], stage=1)
+    prob = 1.0 / num_scens if num_scens else 1.0
+    return m.lower(prob=prob, name=scenario_name, device=device)
 
 
 # ---- driver helpers (the reference's farmer.py:237-268) -----------------

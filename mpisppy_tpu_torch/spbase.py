@@ -2,11 +2,14 @@
 `mpisppy_tpu/spbase.py`).
 
 Owns the lowered ScenarioBatch and its placement on the device, and
-checks that the scenario probabilities sum to one.  There is no mesh:
-the port runs on one device.
+checks that the scenario probabilities sum to one.  The batch is passed
+in (`batch=`, a vectorized builder's), or built by calling
+`scenario_creator(name, **scenario_creator_kwargs)` for every scenario
+name and stacking the results (`ir.stack_scenarios`).  There is no
+mesh: the port runs on one device.
 
-Not ported yet (ROADMAP queue A): the `scenario_creator` path (it needs
-`stack_scenarios`), `variable_probability` and multi-device sharding.
+Not ported yet (ROADMAP queue A): `variable_probability` and
+multi-device sharding.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from . import global_toc, not_ported
 from .device import host, resolve_device
-from .ir import ScenarioBatch
+from .ir import ScenarioBatch, stack_scenarios
 
 # options whose machinery this slice does not carry, with the ROADMAP.md
 # queue A item that ports it: refusing them beats ignoring them
@@ -44,8 +47,15 @@ class SPBase:
         self.scenario_creator_kwargs = scenario_creator_kwargs or {}
         self.device = resolve_device(device)
         if batch is None:
-            # pass batch= (e.g. models.farmer.build_batch) meanwhile
-            raise not_ported("building a batch from scenario_creator", 9)
+            if scenario_creator is None:
+                raise ValueError("need either a batch or a scenario_creator")
+            global_toc(f"Creating {len(self.all_scenario_names)} scenarios")
+            kw = dict(self.scenario_creator_kwargs)
+            kw.setdefault("device", self.device)
+            batch = stack_scenarios(
+                [scenario_creator(name, **kw)
+                 for name in self.all_scenario_names],
+                scen_names=self.all_scenario_names)
         self.n_real_scens = len(self.all_scenario_names)
         self.batch = batch.to(self.device)
         self._verify_probabilities()

@@ -460,11 +460,15 @@ class SPOpt(SPBase):
             "device": name,
         }
 
+    def _feasible(self, res, tol=None):
+        """(S,) bool: the primal residual under `tol` (default 10x the
+        dynamic solver eps)."""
+        return res.pres < (tol or 10 * float(self.solver_eps))
+
     def feas_prob(self, res, tol=None):
         """Probability mass of scenarios whose primal residual is under
         `tol` (default 10x the dynamic solver eps)."""
-        tol = tol or 10 * float(self.solver_eps)
-        ok = res.pres < tol
+        ok = self._feasible(res, tol)
         return float(torch.sum(torch.where(ok, self.batch.prob, 0.0)))
 
     def infeas_prob(self, res, tol=None):
@@ -636,11 +640,18 @@ class SPOpt(SPBase):
         if certify == "auto":
             certify = not (self.feas_prob(res, tol=tol) > 1.0 - 1e-6)
         if certify:
+            # re-solve every scenario that fails the feasibility test,
+            # not only the unconverged ones: below the loop dtype's eps
+            # floor (f32: 1.19e-5) a solve converges with a primal
+            # residual above the test's 10 x solver_eps, and skipping it
+            # left such candidates infeasible however often they were
+            # evaluated (ROADMAP.md §C)
             res = self._certified_resolve(
                 res, c=cache["c_red"], qdiag=cache["q_red"],
                 lb=cache["lb_red"], ub=cache["ub_red"],
                 A=cache["A_red"], row_lo=rlo, row_hi=rhi,
-                obj_const=oc, prep_key=("_prep64_xhat", upto_stage))
+                obj_const=oc, prep_key=("_prep64_xhat", upto_stage),
+                select=~res.converged | ~self._feasible(res, tol))
         self._named_warm[warm] = (res.x, res.y)
         feas = self.feas_prob(res, tol=tol) > 1.0 - 1e-6
         eobj = float(self.Eobjective(res.obj))

@@ -3,9 +3,16 @@ of `mpisppy_tpu/utils/amalgamator.py`).
 
 Module contract: the model module exports
     scenario_names_creator(num_scens, start=0)
-    build_batch(num_scens, **kw)        (with a `device=` keyword)
+    build_batch(num_scens, **kw)  OR  scenario_creator(name, **kw)
+                                        (either with a `device=` keyword)
     inparser_adder(cfg)
-    kw_creator(cfg) -> keyword arguments of build_batch
+    kw_creator(cfg) -> keyword arguments of the builder or creator
+`build_batch` is preferred where both exist.  A `MULTISTAGE` module's
+`build_batch(**kw)` sizes the tree itself from the branching factors
+that `kw_creator` parses from `--branching-factors`; the scenario
+names follow from the batch.  A module with `scenario_creator` only
+gets its batch built once by the hub's SPBase (one creator call per
+scenario name, stacked), and every spoke shares it.
 
 Dispatch: `--EF` solves the extensive form in one consensus solve
 (`opt/ef.ExtensiveForm`); otherwise a WheelSpinner is built from the
@@ -15,13 +22,11 @@ converger flags wired onto the hub (--fixer, --use-norm-rho-updater,
 --use-norm-rho-converger).
 
 The batch is built on `device` (default: the CUDA device), and every
-cylinder runs there.  `batch_kwargs` adds keyword arguments of
-`build_batch` that no flag carries (e.g. dtype=np.float32).  `run()`
-records `wall_build` (the batch) and `wall_run` (the solve).
-
-Not ported yet, refused where selected: a module with only
-`scenario_creator` (batches from scenario_creator, ROADMAP.md queue A
-item 9) and multistage modules (`MULTISTAGE`, the hydro path, item 9).
+cylinder runs there.  `batch_kwargs` adds keyword arguments of the
+builder or creator that no flag carries (e.g. dtype=np.float32).
+`run()` records `wall_build` (the batch; for a creator module the
+stacking happens inside the solve's construction and counts in
+`wall_run`) and `wall_run` (the solve).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import importlib
 import inspect
 import time
 
-from .. import global_toc, not_ported
+from .. import global_toc
 from ..device import host, resolve_device
 from ..opt.ef import ExtensiveForm
 from ..spin_the_wheel import WheelSpinner
@@ -67,12 +72,6 @@ def from_module(mname, cfg, extraargs_fct=None, use_command_line=True,
 class Amalgamator:
     def __init__(self, cfg: Config, module, device=None,
                  batch_kwargs=None):
-        if getattr(module, "MULTISTAGE", False):
-            raise not_ported("the amalgamator's multistage path", 9)
-        if not hasattr(module, "build_batch"):
-            raise not_ported("the amalgamator on a module without "
-                             "build_batch (batches from "
-                             "scenario_creator)", 9)
         self.cfg = cfg
         self.module = module
         self.device = resolve_device(device)
@@ -86,25 +85,36 @@ class Amalgamator:
         self.first_stage_solution = None
         self.wheel = None
         self.ef = None
+        self.creator_kwargs = None
 
     def _make_batch_and_names(self):
-        """(batch, scenario names) from the module's build_batch on the
-        amalgamator's device."""
+        """(batch, scenario names): the batch from the module's
+        build_batch on the amalgamator's device, or None for a module
+        with scenario_creator only (its kwargs are then kept in
+        `creator_kwargs`, for the SPBase that stacks the scenarios)."""
         cfg, m = self.cfg, self.module
         kw = dict(m.kw_creator(cfg))
         kw.pop("num_scens", None)   # build_batch takes it positionally
-        # --seed goes to whichever seed keyword build_batch takes
-        sig = inspect.signature(m.build_batch)
-        seed = int(cfg.get("seed", 0) or 0)
-        for s in ("seed", "seedoffset", "start_seed"):
-            if s in sig.parameters and s not in kw:
-                kw[s] = seed
-                break
+        if hasattr(m, "build_batch"):
+            # --seed goes to whichever seed keyword build_batch takes
+            sig = inspect.signature(m.build_batch)
+            seed = int(cfg.get("seed", 0) or 0)
+            for s in ("seed", "seedoffset", "start_seed"):
+                if s in sig.parameters and s not in kw:
+                    kw[s] = seed
+                    break
         kw.update(self.batch_kwargs)
+        kw["device"] = self.device
+        if getattr(m, "MULTISTAGE", False):
+            # multistage modules size themselves from branching factors
+            batch = m.build_batch(**kw)
+            return batch, m.scenario_names_creator(batch.num_scens)
         num_scens = int(cfg.get("num_scens", 3))
         names = m.scenario_names_creator(num_scens)
-        batch = m.build_batch(num_scens, device=self.device, **kw)
-        return batch, names
+        if hasattr(m, "build_batch"):
+            return m.build_batch(num_scens, **kw), names
+        self.creator_kwargs = kw
+        return None, names
 
     def run(self):
         t0 = time.time()
@@ -118,11 +128,16 @@ class Amalgamator:
 
     def _run_built(self, batch, names):
         cfg = self.cfg
+        creator = None if batch is not None else self.module.scenario_creator
+        ckw = self.creator_kwargs
         opts = cfg.options_dict()
         if self.is_EF:
             opts["pdhg_eps"] = cfg.get("EF_solver_eps",
                                        opts.get("pdhg_eps", 1e-7))
-            ef = ExtensiveForm(opts, names, batch=batch, device=self.device)
+            ef = ExtensiveForm(opts, names, batch=batch,
+                               scenario_creator=creator,
+                               scenario_creator_kwargs=ckw,
+                               device=self.device)
             ef.solve_extensive_form()
             self.ef = ef
             self.EF_Obj = ef.get_objective_value()
@@ -132,10 +147,17 @@ class Amalgamator:
             global_toc(f"Amalgamator EF obj = {self.EF_Obj:.6g}")
             return self
 
-        hub = vanilla.ph_hub(cfg, None, None, names, batch=batch)
+        hub = vanilla.ph_hub(cfg, creator, None, names,
+                             scenario_creator_kwargs=ckw, batch=batch)
         # the spokes take the hub's device
         hub["opt_kwargs"]["device"] = self.device
-        spokes = vanilla.build_spokes(cfg, None, None, names, batch=batch)
+        spokes = vanilla.build_spokes(cfg, creator, None, names,
+                                      scenario_creator_kwargs=ckw,
+                                      batch=batch)
+        for sd in spokes:
+            # and the batch the hub built, rather than their own
+            if sd["opt_kwargs"].get("batch") is None:
+                sd["opt_kwargs"].pop("batch", None)
         hub_opts = hub["opt_kwargs"]["options"]
         if cfg.get("fixer"):
             vanilla.add_fixer(hub, cfg)

@@ -4,10 +4,10 @@ cfg_vanilla.py).
 
 Each factory returns the dict schema WheelSpinner consumes, with the
 reference's signature (cfg, scenario_creator, scenario_denouement,
-all_scenario_names, ...) plus `batch=`, a prebuilt ScenarioBatch.  The
-port needs `batch=` (the `scenario_creator` path is ROADMAP.md queue A
-item 9); on the CPU put `device="cpu"` into the returned dicts'
-`opt_kwargs` (the hub's device is the spokes' default).
+all_scenario_names, ...) plus `batch=`, a prebuilt ScenarioBatch; with
+`batch=None` each optimizer's SPBase stacks the scenarios from
+`scenario_creator`.  On the CPU put `device="cpu"` into the returned
+dicts' `opt_kwargs` (the hub's device is the spokes' default).
 
 The extension adders (`extension_adder`, `add_fixer`, `add_norm_rho`,
 `add_multi_rho`, `add_wtracker`) attach `extensions/` classes to a hub

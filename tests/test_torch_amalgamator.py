@@ -14,8 +14,8 @@ and the vanilla extension adders) against the JAX package on the CPU.
   (`ops.pdhg.normal_draw` is replaced in this module).
 * The vanilla adders build the same hub dicts as the JAX ones
   (MultiExtension on the second extension).
-* What is still refused: a module with only `scenario_creator` and a
-  multistage module (ROADMAP.md queue A item 9).
+* A module with only `scenario_creator` and a multistage module, both
+  refused before the model corpus was ported, run.
 """
 
 import types
@@ -198,12 +198,31 @@ def _module(**attrs):
     return types.SimpleNamespace(**base, **attrs)
 
 
+def _sized_farmer(**kw):
+    """farmer-3 as a module that sizes its own batch, as a multistage
+    module does from its branching factors."""
+    return farmer.build_batch(3, **kw)
+
+
 @pytest.mark.parametrize("attrs", [
     {"scenario_creator": farmer.scenario_creator},
-    {"build_batch": farmer.build_batch, "MULTISTAGE": True}],
+    {"build_batch": _sized_farmer, "MULTISTAGE": True}],
     ids=["scenario_creator_only", "multistage"])
 def test_unported_modules_refuse(attrs):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 9$"):
-        amalgamator.from_module(_module(**attrs), _cfg(config),
-                                args=["--num-scens", "3"], device="cpu")
+    """The two module kinds that the amalgamator refused before the
+    model corpus was ported (ROADMAP.md queue A item 9) now run: a
+    module with scenario_creator only gets its batch stacked from the
+    creator by the EF's SPBase, and a MULTISTAGE module's build_batch
+    sizes the batch itself, its names following from it.  Both give
+    farmer-3's EF."""
+    ama = amalgamator.from_module(
+        _module(**attrs), _cfg(config),
+        args=["--num-scens", "3", "--EF", "--EF-solver-eps", "1e-7"],
+        device="cpu")
+    batch, names = ama._make_batch_and_names()
+    assert names == ["scen0", "scen1", "scen2"]
+    assert (batch is None) == ("scenario_creator" in attrs)
+    ama.run()
+    assert abs(ama.EF_Obj - -108390.0) < 10.0
+    assert ama.ef.batch.num_scens == 3
+    assert ama.ef.batch.c.device.type == "cpu"

@@ -9,7 +9,9 @@
   through `utils/config` and `utils/vanilla`) on the CPU, with telemetry
   into a dir (`telemetry/`, `log.py`) and converged-scenario compaction
   on, imports every module of `extensions/` and `convergers/`, runs
-  `utils/amalgamator` in EF mode, and finds no `jax` and no
+  `utils/amalgamator` in EF mode, imports every module of `models/`,
+  runs hydro's EF through the amalgamator's multistage path and its
+  scenario_creator through SPBase, and finds no `jax` and no
   `mpisppy_tpu.*` module loaded.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
@@ -119,6 +121,22 @@ for g in ("popular_args", "ph_args", "ef_args"):
     getattr(acfg, g)()
 ama = amalgamator.from_module(farmer, acfg, args=["--num-scens", "3",
                               "--EF"], device="cpu").run()
+import mpisppy_tpu_torch.models
+for info in pkgutil.iter_modules(mpisppy_tpu_torch.models.__path__):
+    importlib.import_module(f"mpisppy_tpu_torch.models.{info.name}")
+from mpisppy_tpu_torch import model, scenario_tree
+from mpisppy_tpu_torch.models import hydro
+from mpisppy_tpu_torch.opt import mip
+from mpisppy_tpu_torch.spbase import SPBase
+hcfg = config.Config()
+for g in ("popular_args", "ph_args", "ef_args"):
+    getattr(hcfg, g)()
+hama = amalgamator.from_module(hydro, hcfg, args=["--branching-factors",
+                               "3,3", "--EF"], device="cpu").run()
+sb = SPBase({}, hydro.scenario_names_creator(9),
+            scenario_creator=hydro.scenario_creator,
+            scenario_creator_kwargs={"branching_factors": [3, 3]},
+            device="cpu")
 with open(os.path.join(tdir, "trace.json")) as f:
     rows = [e["args"]["name"] for e in json.load(f)["traceEvents"]
             if e["ph"] == "M"]
@@ -129,9 +147,14 @@ wheel = sorted(m for m in sys.modules
                                 "mpisppy_tpu_torch.resilience.",
                                 "mpisppy_tpu_torch.utils.",
                                 "mpisppy_tpu_torch.extensions.",
-                                "mpisppy_tpu_torch.convergers.")))
+                                "mpisppy_tpu_torch.convergers.",
+                                "mpisppy_tpu_torch.models.",
+                                "mpisppy_tpu_torch.model",
+                                "mpisppy_tpu_torch.scenario_tree",
+                                "mpisppy_tpu_torch.opt.")))
 print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
-                  "ef_obj": ama.EF_Obj,
+                  "ef_obj": ama.EF_Obj, "hydro_ef": hama.EF_Obj,
+                  "hydro_nodes": sb.batch.tree.num_nodes,
                   "bounds": [ws.BestOuterBound, ws.BestInnerBound],
                   "traj": traj, "rows": rows,
                   "traffic": telemetry.traffic_counters()}))
@@ -154,6 +177,14 @@ def test_fresh_interpreter_port_run_loads_no_jax():
             "mpisppy_tpu_torch.convergers.primal_dual_converger"} <= set(
                 res["wheel"])
     assert abs(res["ef_obj"] - -108390.0) < 10.0
+    # the model corpus, the creator path and the multistage path
+    assert {f"mpisppy_tpu_torch.models.{m}" for m in (
+        "hydro", "aircond", "aircondB", "acopf3", "sizes", "apl1p",
+        "battery", "netdes", "gbd", "usar")} | {
+        "mpisppy_tpu_torch.model", "mpisppy_tpu_torch.scenario_tree",
+        "mpisppy_tpu_torch.opt.mip"} <= set(res["wheel"])
+    assert abs(res["hydro_ef"] - 186.17) < 0.01
+    assert res["hydro_nodes"] == 4
     outer, inner = res["bounds"]
     assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner
     assert res["traj"] and res["traj"][-1]["active"] == 0
@@ -192,5 +223,7 @@ def test_unported_options_refuse():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PH({}, ["s0", "s1", "s2"], batch=b, device="cpu",
            variable_probability=np.ones((3, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the scenario_creator path is ported: without a batch the creator
+    # is required
+    with pytest.raises(ValueError, match="batch or a scenario_creator"):
         PH({}, ["s0", "s1", "s2"], device="cpu")

@@ -722,7 +722,6 @@ UNPORTED = {
                                                   None, NAMES), 10),
     "vanilla_xhatlshaped": (lambda: vanilla.build_spokes(
         _cfg(xhatlshaped=True), None, None, NAMES), 10),
-    "scenario_creator": (lambda: farmer.scenario_creator("scen0"), 9),
 }
 
 
@@ -760,9 +759,11 @@ def _adder(name):
     return hub["opt_kwargs"]["extensions"] is not None
 
 
-# parts that raised until ported (ROADMAP.md queue A items 8, 5 and 7):
-# each case now checks that the part works
+# parts that raised until ported (ROADMAP.md queue A items 8, 5, 7 and
+# 9): each case now checks that the part works
 PORTED = {
+    "scenario_creator": lambda: farmer.scenario_creator(
+        "scen0", device="cpu").num_scens == 1,
     "add_fixer": lambda: _adder("add_fixer"),
     "add_norm_rho": lambda: _adder("add_norm_rho"),
     "add_multi_rho": lambda: _adder("add_multi_rho"),
