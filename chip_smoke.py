@@ -123,15 +123,48 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
               A in shared memory (sizes), in global memory (usar), a
               nonzero qs with A in shared / global memory (acopf3
               ieee14, f32 / f64) and in registers (acopf3 (2,2)).
-The corpus phase, then the uc fallback pass, sslp, the golden and the
-compact phase run in a second process on the same card (this script
+ 14. algorithms the remaining algorithms, each through its users' entry
+              point on farmer S=1000, cm=10 unless said (ALG_CUTS lists
+              the cuts): `alg_farmer_ef`, the f64 EF optimum by HiGHS;
+              `alg_lshaped`, examples/farmer_lshapedhub.py's command
+              line through config and vanilla at S=100, one iteration
+              (f64, the example's dtype: the subproblems on the kernel,
+              the root on the matmul route, re-solved from the primal
+              weight's floor when it stalls), its bounds bracketing the
+              EF optimum of its batch, no root left unconverged;
+              `alg_aph`, vanilla.aph_hub with dispatch_frac 0.5 and a
+              Lagrangian and an xhat-shuffle spoke (f32), conv falling,
+              bounds finite and ordered; `alg_fwph`, a PH hub with the
+              --fwph spoke (f32), whose hull QP launches the dense form
+              at (1000, 121, 136), its best dual bound under the EF
+              optimum; `alg_sc`, the Schur-complement IPM within 1e-6
+              of the EF optimum at S=100, and at S=1000 within
+              ALG_SC_FULL_TOL_REL of where the JAX package's IPM ends
+              (tests/sc_witness.py); `alg_mip`, the MIP dive on integer
+              farmer-6 against HiGHS's MILP optimum (sizes-3's golden
+              row takes 751.2 s on the card: tests/algorithms_witness.py);
+              `alg_bundles`, aircondB (aircond (10,10,10) in ten proper
+              bundles of 100, (10, 1552, 1600), f32) through the
+              amalgamator with a Lagrangian spoke, its outer bound
+              under aircond's HiGHS EF optimum and within
+              ALG_BUNDLE_OUTER_FACTOR x |optimum| of it; `alg_varprob`,
+              PH with a non-uniform variable_probability, x̄ against a
+              numpy weighting.  The kernel phase holds the dense form at
+              the two new shapes against its plain version: the hull QP
+              (f32, f64, A in shared memory) and the bundles (f32, A in
+              global memory).
+The corpus phase, then the uc fallback pass, sslp, the golden, the
+compact phase and the algorithms sub-runs of ALG_CHILD (line
+`algorithms`) run in a second process on the same card (this script
 with SECOND_PROCESS_FLAG), started when true_size ends, beside the uc,
-wheel and driver phases of the main process; its lines are copied into
-this output when it ends, the last one `child` with its wall.
+wheel and driver phases and the algorithms sub-runs of ALG_MAIN (line
+`algorithms_main`) of the main process; its lines are copied into this
+output when it ends, the last one `child` with its wall.
 Then the kernels line (each entry with its launches in `wheel_split`,
 in the driver phase's cylinders run and in the compact phase, and the
 dense and split forms with their compacted-slab run; the corpus rows
-with their launches on the corpus path), the nvidia-smi line, and the
+with their launches on the corpus path; the algorithms' rows with
+their launches on the algorithms path), the nvidia-smi line, and the
 result line.
 
 Imports nothing of jax and nothing of the JAX package (scipy only for
@@ -192,13 +225,15 @@ SPLIT_OPTS = {k: v for k, v in SLICE_OPTS.items() if k != "no_split_prep"}
 # iterations keep one Lagrangian bound (after the last iteration; 5
 # until the script ran over its limit on a slower host, 6 until the
 # corpus phase needed the time, with a second after iteration 6); one
-# sweep is one full (terminating) sweep.  S was 250 and the iterations
+# sweep is one full (terminating) sweep.  S was 64 until the algorithms
+# phase needed the time (the phase took 220 s there, its EF bound 95 s
+# and its sweep 57 s).  S was 250 and the iterations
 # 10 until the driver phase needed the time: at S=250 the phase took
 # 359-428 s on that card; S was 125 (264.3 s) until the corpus phase
 # needed the time.
 UC_FULL = {"H": 24, "fleet_multiplier": 7}
 UC_FULL_SHAPE = (1, 2502, 1536)
-UC_S, UC_PH_ITERS, UC_SWEEPS = 64, 2, 1
+UC_S, UC_PH_ITERS, UC_SWEEPS = 32, 2, 1
 # the consensus-EF dual bound's iteration cap (ef_dual_bound's default
 # and the bench's 100,000) for its f32 solve: at S=64 that solve runs to
 # the cap; the f64 certify after it runs to its own 100,000-iteration
@@ -277,10 +312,11 @@ CORPUS_HYDRO_ARGV = ["--branching-factors", "3,3", "--max-iterations",
                      "--lagrangian", "--xhatshuffle"]
 # the full published aircond parameter table at a tree of 1000 leaves
 # (S=1000, 4 stages, 111 non-leaf nodes): a full batch for the kernel;
-# 4 PH iterations (10 until the script ran over its limit on a slower
-# host: 64-76 s on an NVIDIA H100 80GB HBM3 at 700 W, its inner bound
-# +inf all the same)
-CORPUS_AIRCOND_ITERS = 4
+# 2 PH iterations (4 until the algorithms phase needed the time, 33.3 s
+# on an NVIDIA H100 80GB HBM3 at 700 W; 10 until the script ran over
+# its limit on a slower host: 64-76 s, its inner bound +inf all the
+# same)
+CORPUS_AIRCOND_ITERS = 2
 CORPUS_AIRCOND_ARGV = ["--branching-factors", "10,10,10",
                        "--max-iterations", str(CORPUS_AIRCOND_ITERS),
                        "--default-rho", "1", "--lagrangian",
@@ -318,6 +354,98 @@ CORPUS_2STAGE_ITERS = 5
 # CPU in f64)
 CORPUS_BRACKET_TOL_REL = 1e-5
 CORPUS_CROSS_TOL_REL = 1e-4
+# the algorithms phase: L-shaped, APH, FWPH, the
+# Schur-complement IPM, the MIP dive, bundles and variable_probability,
+# each through its users' entry point, farmer at S=1000, cm=10 (the
+# slice's batch) unless said.  Iteration caps cut for time (ALG_CUTS)
+# L-shaped at S=100 (cm=10), one iteration: its first root LP at
+# S=1000, (1, 1 + 2000, 1030), ends unconverged at 50,000 PDHG
+# iterations in both packages, the port's also after its re-solve from
+# the primal weight's floor (tests/lshaped_root_witness.py --scens 1000
+# on the CPU: duality gap 1.0e-2 in the JAX package, 6.3e-3 in the
+# port), and an unconverged root's objective is no bound.  At S=100 the
+# first root converges (the port's after its re-solve); a later one
+# runs far longer, so the iterations are cut to 1
+ALG_LSHAPED_S = 100
+ALG_LSHAPED_ITERS = 1
+ALG_LSHAPED_ARGV = ["--num-scens", str(ALG_LSHAPED_S), "--crops-multiplier",
+                    str(CM), "--max-iterations", str(ALG_LSHAPED_ITERS),
+                    "--xhatlshaped"]
+ALG_APH_ITERS = 3
+ALG_APH_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
+                "--max-iterations", str(ALG_APH_ITERS), "--dispatch-frac",
+                "0.5", "--default-rho", "1", "--lagrangian",
+                "--xhatshuffle"]
+ALG_FWPH_ITERS = 1
+ALG_FWPH_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
+                 "--max-iterations", str(ALG_FWPH_ITERS), "--default-rho",
+                 "1", "--fwph"]
+# the MIP extensive form in the script: integer farmer-6 (the JAX
+# package's tests/test_integer_goldens.py case); examples/sizes_ef_mip.py's
+# run_all.py row takes 751.2 s on the card, host-bound on the consensus
+# route, and runs in tests/algorithms_witness.py with its golden
+ALG_MIP_S = 6
+ALG_MIP_OPTIONS = {"pdhg_eps": 1e-7, "pdhg_max_iters": 200000}
+ALG_BUNDLE_ITERS = 1
+# aircondB's outer bound after ALG_BUNDLE_ITERS PH iteration(s) must lie
+# within this many |EF optimum| below aircond's EF optimum (HiGHS): a
+# finite bound that the cut iteration count can still fail (-38,268.9
+# against 732.1976, 53 of them, on an NVIDIA H100 80GB HBM3 at 700 W)
+ALG_BUNDLE_OUTER_FACTOR = 100
+# --solver-eps 1e-5: at the default 1e-6, below the f32 floor (1.19e-5),
+# two of the ten bundles' Iter0 solves end with a primal residual above
+# the 1e-5 feasibility test, and their f64 certify (20,000 iterations)
+# does not finish them; the JAX package's Iter0 fails there too
+# (tests/aircondb_iter0_witness.py on the CPU)
+ALG_BUNDLE_ARGV = ["--branching-factors", "10,10,10",
+                   "--scenarios-per-bundle", "100", "--max-iterations",
+                   str(ALG_BUNDLE_ITERS), "--default-rho", "1",
+                   "--solver-eps", "1e-5", "--lagrangian"]
+ALG_VARPROB_ITERS = 2
+# the Schur-complement IPM: its default 100 iterations leave farmer at
+# S=100, cm=10 far from the optimum in both packages; the run held to
+# 1e-6 of the EF optimum is S=100 at ALG_SC_ITERS.  At S=1000 and
+# ALG_SC_FULL_ITERS iterations both packages' IPMs stop ~0.1945 short of
+# the EF optimum (its feasibility test is absolute, so mu falls at the
+# slow rate to its floor): tests/sc_witness.py on the CPU, the JAX
+# package at ALG_SC_FULL_JAX, the port 3.0e-4 from it; where a stalled
+# IPM stops depends on its rounding (the port's CPU and card ends differ
+# by 2.7e-4), so the card's end must lie within ALG_SC_FULL_TOL_REL of
+# the JAX package's
+ALG_SC_S = 100
+ALG_SC_ITERS = 3000
+ALG_SC_FULL_ITERS = 1000
+ALG_SC_FULL_JAX = -1074660.2125392444
+ALG_SC_FULL_TOL_REL = 1e-3
+ALG_CUTS = {
+    "alg_lshaped": {"--max-iterations": {"run_all.py": 50,
+                                         "here": ALG_LSHAPED_ITERS},
+                    "--num-scens": {"full width": S, "here": ALG_LSHAPED_S}},
+    "alg_aph": {"PHIterLimit": {"vanilla default": 100,
+                                "here": ALG_APH_ITERS}},
+    "alg_fwph": {"PHIterLimit": {"vanilla default": 100,
+                                 "here": ALG_FWPH_ITERS}},
+    "alg_bundles": {"PHIterLimit": {"vanilla default": 100,
+                                    "here": ALG_BUNDLE_ITERS},
+                    "--solver-eps": {"default": 1e-6, "here": 1e-5}},
+    "alg_varprob": {"PHIterLimit": {"vanilla default": 100,
+                                    "here": ALG_VARPROB_ITERS}},
+    "alg_sc": {"sc_max_iter": {"default": 100, "here": ALG_SC_ITERS},
+               "S (to 1e-6 of the EF)": {"full width": S,
+                                         "here": ALG_SC_S}},
+    "alg_mip": {"instance": {"run_all.py": "sizes-3 (examples/"
+                                           "sizes_ef_mip.py, 751.2 s on "
+                                           "the card)",
+                             "here": f"integer farmer-{ALG_MIP_S}"}}}
+# the dense kernel at the algorithms' new shapes: FWPH's hull QP at
+# (S, N+1, N+T) = (1000, 121, 136), A in shared memory (f32 and f64),
+# and aircondB's ten bundles of 100 scenarios, (10, 1552, 1600), A in
+# global memory (f32)
+ALG_KERNEL_CASES = (("hull_qp_fwph", (S, 121, 136), ("shared", "shared")),
+                    ("bundles_aircondB", (10, 1552, 1600),
+                     ("global", None)))
+# values the second process's phases share (the aircond HiGHS optimum)
+SHARED = {}
 # the corpus phase, the uc fallback pass, sslp, the golden and the
 # compact phase run in a second process (this script with this flag),
 # which reads the true_size phase's Iter0 line from SECOND_PROCESS_IN;
@@ -737,6 +865,7 @@ def kernel_phase(name):
         rows[(form + "_compacted", "float32")] = row
         emit({"phase": "kernel", **row})
     rows.update(corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
+    rows.update(alg_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
     return rows
 
 
@@ -1365,6 +1494,7 @@ def uc_cuts():
     # the depths before the driver phase needed the time
     cuts["S"]["before the driver phase"] = 250
     cuts["S"]["before the corpus phase"] = 125
+    cuts["S"]["before the algorithms phase"] = 64
     cuts["ph_iterations"]["before the driver phase"] = 10
     cuts["ph_iterations"]["before the corpus phase"] = 6
     cuts["ph_iterations"]["before the script ran over its limit"] = 5
@@ -1533,7 +1663,7 @@ def uc_fallback_pass():
     return out
 
 
-def ef_lp_oracle(b):
+def ef_lp_oracle(b, integer=False):
     """The LP optimum of the batch's extensive form by HiGHS
     (scipy.optimize.linprog), assembled from the batch's arrays in
     float64: one column per (tree node, nonant slot), shared by the
@@ -1541,9 +1671,11 @@ def ef_lp_oracle(b):
     one node, so one copy of the nonant columns for all scenarios), each
     scenario's other columns its own, the objective weighted by the
     scenario probabilities.  A plain reference, independent of the PDHG
-    solver.  Returns (objective, number of EF columns)."""
+    solver.  integer=True: the EF MILP's optimum instead (HiGHS
+    branch-and-cut through scipy.optimize.milp, the batch's
+    integer_mask).  Returns (objective, number of EF columns)."""
     import scipy.sparse as sp
-    from scipy.optimize import linprog
+    from scipy.optimize import Bounds, LinearConstraint, linprog, milp
 
     def host(t):
         return t.detach().cpu().double().numpy()
@@ -1586,9 +1718,21 @@ def ef_lp_oracle(b):
     bounds = (list(zip(lo_sh.tolist(), hi_sh.tolist()))
               + [(float(lb[s, j]), float(ub[s, j]))
                  for s in range(S) for j in rest])
-    res = linprog(cost, A_ub=A_ub, b_ub=b_ub, A_eq=big[eq], b_eq=lo[eq],
-                  bounds=bounds, method="highs")
-    check(res.status == 0, f"HiGHS failed on the EF LP: {res.message}")
+    if integer:
+        im = b.integer_mask.cpu().numpy()
+        integ = np.zeros(P + S * R)
+        for s in range(S):
+            integ[col[s]] = np.maximum(integ[col[s]], im[s, na])
+            integ[P + s * R:P + (s + 1) * R] = im[s, rest]
+        cons = [LinearConstraint(big[~eq], lo[~eq], hi[~eq]),
+                LinearConstraint(big[eq], lo[eq], hi[eq])]
+        res = milp(cost, constraints=cons, integrality=integ,
+                   bounds=Bounds(*map(np.array, zip(*bounds))),
+                   options={"mip_rel_gap": 1e-6})
+    else:
+        res = linprog(cost, A_ub=A_ub, b_ub=b_ub, A_eq=big[eq],
+                      b_eq=lo[eq], bounds=bounds, method="highs")
+    check(res.status == 0, f"HiGHS failed on the EF: {res.message}")
     return float(res.fun) + float(np.sum(prob * host(b.obj_const))), P + S * R
 
 
@@ -2403,21 +2547,28 @@ def model_solver_space_inputs(b):
     boxes are all finite: the port's Ruiz-scaled prep (dense, or shared
     for a (1, M, N) matrix), cold duals, the box midpoint as the primal
     start, omega=1; qs is qdiag scaled."""
+    return lp_solver_space_inputs(b.A, b.row_lo, b.row_hi, b.c, b.qdiag,
+                                  b.lb, b.ub)
+
+
+def lp_solver_space_inputs(A, row_lo, row_hi, c, qdiag, lb, ub):
+    """model_solver_space_inputs for one batched LP/QP given by its
+    arrays (finite boxes)."""
     import torch
 
     from mpisppy_tpu_torch.ops.pdhg import prepare_batch
-    check(bool(torch.isfinite(b.lb).all() and torch.isfinite(b.ub).all()),
-          "model_solver_space_inputs needs finite boxes")
-    p = prepare_batch(b.A, b.row_lo, b.row_hi)
+    check(bool(torch.isfinite(lb).all() and torch.isfinite(ub).all()),
+          "lp_solver_space_inputs needs finite boxes")
+    p = prepare_batch(A, row_lo, row_hi)
     dc = p.d_col
-    qs = b.qdiag * dc * dc
-    lbs = b.lb / dc
-    ubs = b.ub / dc
+    qs = qdiag * dc * dc
+    lbs = lb / dc
+    ubs = ub / dc
     x = 0.5 * (lbs + ubs)
     y = torch.zeros_like(p.row_lo)
     tau = 0.9 / (p.anorm + 0.9 * qs.amax(dim=1))
     sigma = (0.9 / p.anorm).expand(tau.shape)
-    vec = [t.contiguous() for t in (b.c * dc, qs, lbs, ubs, p.row_lo,
+    vec = [t.contiguous() for t in (c * dc, qs, lbs, ubs, p.row_lo,
                                     p.row_hi, x, y, tau, sigma)]
     return [p.A.contiguous()] + vec
 
@@ -2463,6 +2614,63 @@ def corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
             row["nonzero_qs"] = int((vec[1] != 0).sum())
             rows[(case, dname)] = row
             emit({"phase": "kernel", **row})
+    return rows
+
+
+def alg_kernel_inputs(case, dtype):
+    """Solver-space chunk inputs at the algorithms' new shapes: FWPH's
+    lifted hull QP over farmer S=1000, cm=10 with a full bank of 16
+    columns (seeded points of each scenario's box), or aircondB's ten
+    bundles of 100 scenarios."""
+    import torch
+
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.fwph.fwph import hull_qp_arrays
+    from mpisppy_tpu_torch.models import aircondB, farmer
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    if case == "bundles_aircondB":
+        b = aircondB.build_batch((10, 10, 10), scenarios_per_bundle=100,
+                                 dtype=npdt)
+        return lp_solver_space_inputs(b.A, b.row_lo, b.row_hi, b.c,
+                                      b.qdiag, b.lb, b.ub)
+    b = farmer.build_batch(S, crops_multiplier=CM, dtype=npdt)
+    T = 16
+    lb, ub = host(b.lb), host(b.ub)
+    u = np.random.default_rng(0).uniform(size=(S, T, b.num_vars))
+    V = lb[:, None, :] + u * (ub - lb)[:, None, :]
+    K = b.num_nonants
+    W = torch.zeros((S, K), dtype=b.c.dtype, device=b.c.device)
+    xbar = torch.as_tensor(V[:, 0][:, host(b.nonant_idx)].mean(axis=0),
+                           dtype=b.c.dtype, device=b.c.device).expand(S, K)
+    rho = torch.ones((S, K), dtype=b.c.dtype, device=b.c.device)
+    return lp_solver_space_inputs(*hull_qp_arrays(
+        b, V, np.ones((S, T), bool), W, xbar, rho))
+
+
+def alg_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
+    """The dense kernel at the algorithms' new shapes against its plain
+    version: FWPH's hull QP (1000, 121, 136), A in shared memory, f32 and
+    f64; aircondB's bundles (10, 1552, 1600), A in global memory, f32."""
+    import torch
+    rows = {}
+    for case, shape, expect in ALG_KERNEL_CASES:
+        for (store, peak), want in zip(((torch.float32, f32_peak),
+                                        (torch.float64, f64_peak)), expect):
+            if want is None:
+                continue
+            dname = str(store).replace("torch.", "")
+            args = alg_kernel_inputs(case, store)
+            A, vec = args[0], args[1:]
+            check(tuple(A.shape) == shape,
+                  f"{case}: A is {tuple(A.shape)}, not {shape}")
+            row = measure_form("dense", A, vec, dname, peak, bw, peak_name,
+                               n_sm)
+            check(row["variant"]["source"] == want,
+                  f"{case} {dname} took {row['variant']}, not A in {want}")
+            row["case"] = case
+            rows[(case, dname)] = row
+            emit({"phase": "kernel", **row})
+            del args, A, vec
     return rows
 
 
@@ -2625,6 +2833,7 @@ def corpus_aircond():
     t = time.time()
     highs, n_vars = ef_lp_oracle(b)
     highs_s = time.time() - t
+    SHARED["aircond_highs"] = highs     # aircondB's reference too
     _bracket(line, highs, CORPUS_BRACKET_TOL_REL, "corpus_aircond")
     spread = _node_spread(ama.wheel.spcomm.opt)
     check(spread["stage2"] == 0.0 and spread["stage3"] == 0.0,
@@ -2635,6 +2844,7 @@ def corpus_aircond():
            "xbar_spread_in_node": spread,
            "cuts": dict(_certify_cut(), **{"--max-iterations": {
                "before the script ran over its limit": 10,
+               "before the algorithms phase": 4,
                "here": CORPUS_AIRCOND_ITERS}})}
     emit(out)
     return out
@@ -2785,6 +2995,346 @@ def corpus_phase():
     return out
 
 
+# ---- the remaining algorithms ----------------------------------------------
+
+def _alg_line(name, fn):
+    """Run one algorithms sub-run with the counts zeroed just before
+    it; its line gains the wall, the kernel launches by (form, S, M, N,
+    dtype, variant) and the matmul and consensus routes' chunks."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    line = {"phase": name, **out, "wall_s": time.time() - t,
+            "launches": launch_variants(),
+            "matmul_chunks": pdhg.matmul_chunks,
+            "consensus_chunks": pdhg.consensus_chunks}
+    if name in ALG_CUTS:
+        line["cuts"] = ALG_CUTS[name]
+    emit(line)
+    return line
+
+
+def _farmer_cfg(argv, progname, options=None):
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.utils import config
+    cfg = _driver_cfg(config, options)
+    cfg.aph_args()
+    farmer.inparser_adder(cfg)
+    cfg.parse_command_line(progname, args=argv)
+    return cfg
+
+
+def alg_farmer_ef():
+    """The f64 EF optimum of farmer S=1000, cm=10 by HiGHS (the
+    L-shaped, FWPH and SC checks' reference)."""
+    from mpisppy_tpu_torch.models import farmer
+    t = time.time()
+    opt, n_vars = ef_lp_oracle(farmer.build_batch(S, crops_multiplier=CM))
+    SHARED["farmer_ef"] = opt
+    return {"highs_optimum": opt, "highs_ef_vars": n_vars,
+            "highs_s": time.time() - t}
+
+
+def alg_lshaped():
+    """examples/farmer_lshapedhub.py's command line at S=ALG_LSHAPED_S,
+    cm=10 through the port's config and vanilla (its batch in f64, the
+    example's dtype): the subproblems on the kernel, the root
+    (1, 1 + S (max_iter + 1), 30 + S) on the matmul route.  Outer <=
+    inner, both around the f64 EF optimum of the same batch (HiGHS);
+    the gap at the cap."""
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.utils import vanilla
+    cfg = _farmer_cfg(ALG_LSHAPED_ARGV, "farmer_lshapedhub")
+    names = farmer.scenario_names_creator(cfg.num_scens)
+    batch = farmer.build_batch(cfg.num_scens,
+                               crops_multiplier=cfg.get("crops_multiplier"))
+    hub = vanilla.lshaped_hub(cfg, farmer.scenario_creator, None, names,
+                              batch=batch)
+    spokes = [vanilla.xhatlshaped_spoke(cfg, farmer.scenario_creator,
+                                        None, names, batch=batch)]
+    ws = WheelSpinner(hub, spokes).spin()
+    opt = ws.spcomm.opt
+    outer, inner = float(ws.BestOuterBound), float(ws.BestInnerBound)
+    ef, _ = ef_lp_oracle(batch)
+    tol = CORPUS_BRACKET_TOL_REL * abs(ef)
+    check(np.isfinite(outer) and np.isfinite(inner),
+          f"alg_lshaped: bounds {outer}, {inner}")
+    check(outer <= inner + tol, f"alg_lshaped: outer {outer} > inner {inner}")
+    check(outer <= ef + tol and inner >= ef - tol,
+          f"alg_lshaped: [{outer}, {inner}] do not bracket {ef}")
+    check(ws.spcomm.failed_spokes == [], "alg_lshaped: a spoke failed")
+    check(opt.root_unconverged == 0, f"alg_lshaped: {opt.root_unconverged}"
+          " root LP(s) unconverged: the outer bound is no bound")
+    M_root, N_root = opt._root["A"].shape[1:]
+    return {"S": batch.num_scens, "dtype": "float64", "iterations": opt.iter,
+            "best_outer": outer, "best_inner": inner,
+            "rel_gap": (inner - outer) / abs(inner), "ef_optimum": ef,
+            "root_shape": [1, M_root, N_root], "cuts_added":
+            opt._root["n_cuts"], "root_resolves": opt.root_resolves,
+            "history": [[o, i] for o, i, _ in opt.history]}
+
+
+def _aph_recording():
+    """APH recording its convergence metric after each superstep."""
+    from mpisppy_tpu_torch.opt.aph import APH
+
+    class Rec(APH):
+        def _aph_superstep(self, *a):
+            st = super()._aph_superstep(*a)
+            self.convs = getattr(self, "convs", []) + [float(st.conv)]
+            return st
+    return Rec
+
+
+def alg_aph():
+    """vanilla.aph_hub on farmer S=1000, cm=10, f32, dispatch_frac 0.5,
+    with a Lagrangian and an xhat-shuffle spoke, interleaved: APH's conv
+    falls, both bounds finite, outer <= inner."""
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.utils import vanilla
+    cfg = _farmer_cfg(ALG_APH_ARGV, "farmer_aph")
+    names = farmer.scenario_names_creator(cfg.num_scens)
+    batch = farmer.build_batch(cfg.num_scens, crops_multiplier=CM,
+                               dtype=np.float32)
+    hub = vanilla.aph_hub(cfg, farmer.scenario_creator, None, names,
+                          batch=batch)
+    hub["opt_class"] = _aph_recording()
+    spokes = vanilla.build_spokes(cfg, farmer.scenario_creator, None,
+                                  names, batch=batch)
+    ws = WheelSpinner(hub, spokes).spin()
+    opt = ws.spcomm.opt
+    outer, inner = float(ws.BestOuterBound), float(ws.BestInnerBound)
+    check(opt.n_dispatch == S // 2, f"alg_aph dispatches {opt.n_dispatch}")
+    convs = opt.convs
+    check(len(convs) >= 2 and np.isfinite(convs[-1])
+          and convs[-1] < convs[1], f"alg_aph: conv did not fall: {convs}")
+    check(np.isfinite(outer) and np.isfinite(inner),
+          f"alg_aph: bounds {outer}, {inner}")
+    check(outer <= inner + CORPUS_CROSS_TOL_REL * abs(inner),
+          f"alg_aph: outer {outer} > inner {inner}")
+    check(ws.spcomm.failed_spokes == [], "alg_aph: a spoke failed")
+    return {"S": S, "dtype": "float32", "n_dispatch": opt.n_dispatch,
+            "iterations": ws.spcomm.current_iteration(), "convs": convs,
+            "best_outer": outer, "best_inner": inner,
+            "rel_gap": (inner - outer) / abs(inner)}
+
+
+def alg_fwph():
+    """A PH hub with the FWPH spoke (--fwph through vanilla) on farmer
+    S=1000, cm=10, f32: the hull QP launches the dense kernel at (1000,
+    121, 136); the spoke's best dual bound is at most the EF optimum and
+    never decreases."""
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.utils import vanilla
+    cfg = _farmer_cfg(ALG_FWPH_ARGV, "farmer_fwph")
+    names = farmer.scenario_names_creator(cfg.num_scens)
+    batch = farmer.build_batch(cfg.num_scens, crops_multiplier=CM,
+                               dtype=np.float32)
+    hub = vanilla.ph_hub(cfg, farmer.scenario_creator, None, names,
+                         batch=batch)
+    spokes = vanilla.build_spokes(cfg, farmer.scenario_creator, None,
+                                  names, batch=batch)
+    ws = WheelSpinner(hub, spokes).spin()
+    sp = ws.spcomm.spokes[0]
+    bounds = list(sp.opt._dual_bounds)
+    best = np.maximum.accumulate(bounds).tolist()
+    ef = SHARED["farmer_ef"]
+    check(len(bounds) >= 1 and np.isfinite(sp.bound),
+          f"alg_fwph: no dual bound ({bounds})")
+    check(sp.bound == best[-1], f"alg_fwph: spoke bound {sp.bound} is not "
+          f"the best pass bound {best[-1]}")
+    check(sp.bound <= ef + CORPUS_BRACKET_TOL_REL * abs(ef),
+          f"alg_fwph: dual bound {sp.bound} above the EF optimum {ef}")
+    check(ws.spcomm.failed_spokes == [], "alg_fwph: the spoke failed")
+    return {"S": S, "dtype": "float32", "passes": len(bounds),
+            "dual_bounds": bounds, "best_dual_bound": sp.bound,
+            "ef_optimum": ef, "rel_gap_to_ef": (ef - sp.bound) / abs(ef),
+            "sdm_early_stops": sp.opt.sdm_early_stops,
+            "hub_outer": float(ws.BestOuterBound),
+            "hub_inner": float(ws.BestInnerBound)}
+
+
+def alg_sc():
+    """SchurComplement (the IPM runs in f64) on farmer S=ALG_SC_S, cm=10
+    at ALG_SC_ITERS iterations: its objective within 1e-6 of the f64 EF
+    optimum (HiGHS).  Then at S=1000 and ALG_SC_FULL_ITERS iterations:
+    within ALG_SC_FULL_TOL_REL of where the JAX package's IPM stops
+    (both packages stop short of the optimum there)."""
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.sc import SchurComplement
+    b = farmer.build_batch(ALG_SC_S, crops_multiplier=CM)
+    ef, _ = ef_lp_oracle(b)
+    t = time.time()
+    sc = SchurComplement({"sc_max_iter": ALG_SC_ITERS},
+                         farmer.scenario_names_creator(ALG_SC_S), batch=b)
+    obj, x = sc.solve()
+    wall = time.time() - t
+    rel = abs(obj - ef) / abs(ef)
+    check(rel <= 1e-6, f"alg_sc: {obj} is {rel:.2e} from the EF {ef}")
+    t = time.time()
+    fobj, _ = SchurComplement(
+        {"sc_max_iter": ALG_SC_FULL_ITERS}, farmer.scenario_names_creator(S),
+        batch=farmer.build_batch(S, crops_multiplier=CM)).solve()
+    ref = SHARED["farmer_ef"]
+    to_jax = abs(fobj - ALG_SC_FULL_JAX) / abs(ALG_SC_FULL_JAX)
+    check(np.isfinite(fobj) and to_jax <= ALG_SC_FULL_TOL_REL,
+          f"alg_sc: at S={S} the IPM ends at {fobj}, {to_jax:.2e} from the "
+          f"JAX package's {ALG_SC_FULL_JAX}")
+    full = {"S": S, "sc_max_iter": ALG_SC_FULL_ITERS, "objective": fobj,
+            "ef_optimum": ref, "rel_err": abs(fobj - ref) / abs(ref),
+            "jax_objective": ALG_SC_FULL_JAX, "rel_to_jax": to_jax,
+            "s": time.time() - t}
+    return {"S": ALG_SC_S, "sc_max_iter": ALG_SC_ITERS, "objective": obj,
+            "ef_optimum": ef, "rel_err": rel, "ipm_s": wall,
+            "first_stage": [float(v) for v in x[:6]], "at_S1000": full}
+
+
+def alg_mip():
+    """The MIP extensive form (`opt/mip.ExtensiveFormMIP`) on integer
+    farmer-6 (acreage integrality, f64, the JAX package's test options):
+    its incumbent integral and within 1e-4 of the HiGHS MILP optimum of
+    the same EF (-123,483.879 on the CPU), bound <= incumbent, the LP
+    count.  examples/sizes_ef_mip.py's row and its golden take 751.2 s
+    on the card (tests/algorithms_witness.py)."""
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.mip import ExtensiveFormMIP
+    batch = farmer.build_batch(ALG_MIP_S, use_integer=True)
+    ef = ExtensiveFormMIP(dict(ALG_MIP_OPTIONS),
+                          farmer.scenario_names_creator(ALG_MIP_S),
+                          batch=batch)
+    out = ef.solve_mip()
+    inc, bound = out["incumbent"], out["bound"]
+    t = time.time()
+    milp_opt, _ = ef_lp_oracle(batch, integer=True)
+    milp_s = time.time() - t
+    im = batch.integer_mask.cpu().numpy()
+    xi = out["x"][im]
+    rel = abs(inc - milp_opt) / abs(milp_opt)
+    check(np.allclose(xi, np.round(xi)), "alg_mip: incumbent not integral")
+    check(bound <= inc + 1e-9 * abs(inc),
+          f"alg_mip: bound {bound} above incumbent {inc}")
+    check(rel <= 1e-4, f"alg_mip: incumbent {inc} is {rel:.2e} from the "
+          f"MILP optimum {milp_opt}")
+    return {"S": batch.num_scens, "M": batch.num_rows, "N": batch.num_vars,
+            "integer_columns": int(im.sum()), "incumbent": inc,
+            "bound": bound, "gap": out["gap"], "milp_optimum": milp_opt,
+            "milp_s": milp_s, "rel_to_milp": rel, "viol": out["viol"],
+            "lp_solves": out["lp_solves"], "rounds": out["rounds"],
+            "options": ALG_MIP_OPTIONS}
+
+
+def alg_bundles():
+    """aircondB through the amalgamator: aircond (10,10,10) in proper
+    bundles of 100 scenarios, ten two-stage bundles (10, 1552, 1600) in
+    f32, PH with a Lagrangian spoke: its outer bound at most aircond's
+    multistage EF optimum (HiGHS) and at most ALG_BUNDLE_OUTER_FACTOR x
+    |optimum| below it."""
+    from mpisppy_tpu_torch.models import aircond, aircondB
+    ama, line = _corpus_run(aircondB, ALG_BUNDLE_ARGV, "aircondB_cylinders",
+                            np.float32, inner_required=False,
+                            options=CORPUS_CERTIFY_OPTIONS)
+    b = ama.wheel.spcomm.opt.batch
+    shape = dict((c, s) for c, s, _ in ALG_KERNEL_CASES).get(
+        "bundles_aircondB")
+    check(shape is None or (b.num_scens, b.num_rows, b.num_vars) == shape,
+          f"alg_bundles: the bundled batch is ({b.num_scens}, "
+          f"{b.num_rows}, {b.num_vars}), not {shape}")
+    highs = SHARED.get("aircond_highs")
+    if highs is None:
+        # the corpus phase did not run first: the same batch afresh
+        bf = ALG_BUNDLE_ARGV[ALG_BUNDLE_ARGV.index("--branching-factors")
+                             + 1]
+        highs, _ = ef_lp_oracle(aircond.build_batch(
+            tuple(int(f) for f in bf.split(",")), start_seed=0,
+            dtype=np.float32))
+    check(line["best_outer"] <= highs + CORPUS_BRACKET_TOL_REL * abs(highs),
+          f"alg_bundles: outer {line['best_outer']} above the aircond EF "
+          f"optimum {highs}")
+    check(line["best_outer"] >= highs - ALG_BUNDLE_OUTER_FACTOR * abs(highs),
+          f"alg_bundles: outer {line['best_outer']} more than "
+          f"{ALG_BUNDLE_OUTER_FACTOR} x |{highs}| below the aircond EF "
+          "optimum")
+    line.pop("launches")
+    return {**line, "aircond_highs_optimum": highs}
+
+
+def alg_varprob():
+    """PH on farmer S=1000, cm=10, f32, with a non-uniform (S, K)
+    variable_probability: x̄ equals a numpy weighting of the same x;
+    the W-based Lagrangian bound refuses."""
+    import torch
+
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.ph import PH
+    b = farmer.build_batch(S, crops_multiplier=CM, dtype=np.float32)
+    vp = np.random.default_rng(1).uniform(0.2, 1.0, (S, b.num_nonants))
+    vp /= vp.sum(axis=0, keepdims=True)
+    ph = PH({"defaultPHrho": 1.0, "PHIterLimit": ALG_VARPROB_ITERS,
+             "convthresh": 0.0, "pdhg_eps": 1e-6},
+            farmer.scenario_names_creator(S), batch=b,
+            variable_probability=vp)
+    conv, eobj, triv = ph.ph_main()
+    x_na = host(b.nonants(ph.state.x)).astype(np.float64)
+    want = (vp * x_na).sum(axis=0) / vp.sum(axis=0)
+    got = host(ph.state.xbar)[0].astype(np.float64)
+    rel = float(np.max(np.abs(got - want)) / max(1.0, np.max(np.abs(want))))
+    check(rel <= 1e-5, f"alg_varprob: x̄ {rel:.2e} from the numpy weighting")
+    plain = (host(b.prob)[:, None] * x_na).sum(axis=0)
+    refused = False
+    try:
+        ph.lagrangian_bound()
+    except NotImplementedError:
+        refused = True
+    check(refused, "alg_varprob: the W-based bound did not refuse")
+    check(ph.state.x.device.type == "cuda" and torch.is_tensor(
+        ph.batch.var_prob), "alg_varprob left the card")
+    return {"S": S, "dtype": "float32", "iterations": int(ph.state.it),
+            "xbar_rel_err": rel, "eobj": eobj, "conv": conv,
+            "xbar_moved_by_weights": float(np.max(np.abs(got - plain))),
+            "lagrangian_refused": refused}
+
+
+# the algorithms' sub-runs by process: the second process's (after
+# `compact`) and the main process's (after `driver`), so that the two
+# end near each other; `alg_farmer_ef` gives the second process's
+# checks their reference
+ALG_CHILD = ("alg_farmer_ef", "alg_fwph", "alg_sc", "alg_bundles")
+ALG_MAIN = ("alg_lshaped", "alg_aph", "alg_mip", "alg_varprob")
+
+
+def algorithms_phase(names=ALG_CHILD, phase="algorithms"):
+    """The remaining algorithms on the card, each through its users'
+    entry point, one line each (the sub-runs `names`, of ALG_CHILD or
+    ALG_MAIN); the launches of every sub-run summed by (form, M, N,
+    dtype) for the kernels line.  Its line is `phase`."""
+    import collections
+    t0 = time.time()
+    lines = {}
+    for name in names:
+        lines[name] = _alg_line(name, globals()[name])
+    launched = collections.Counter()
+    for ln in lines.values():
+        for r in ln["launches"]:
+            launched[(r["form"], r["M"], r["N"], r["dtype"])] += r["launches"]
+    out = {"phase": phase, "s": time.time() - t0,
+           "sub_run_s": {k: v["wall_s"] for k, v in lines.items()},
+           "launches_by_form_shape_dtype": [
+               {"form": k[0], "M": k[1], "N": k[2], "dtype": k[3],
+                "launches": n} for k, n in sorted(launched.items())]}
+    emit(out)
+    out["launched"] = launched
+    return out
+
+
 def start_second_process(true_iter0):
     """Start the second process on the same card (this script with
     SECOND_PROCESS_FLAG, see second_process), its lines going to
@@ -2832,13 +3382,14 @@ def join_second_process(child):
     sys.stdout.flush()
     check(rc == 0, f"the second process ended with {rc} (stderr above)")
     for phase in ("corpus", "uc_fallback", "sslp", "golden", "compact",
-                  "child"):
+                  "algorithms", "child"):
         check(phase in by_phase, f"the second process printed no {phase} "
               "line")
-    corpus = by_phase["corpus"]
-    corpus["launched"] = collections.Counter({
-        (r["form"], r["M"], r["N"], r["dtype"]): r["launches"]
-        for r in corpus["launches_by_form_shape_dtype"]})
+    for phase in ("corpus", "algorithms"):
+        d = by_phase[phase]
+        d["launched"] = collections.Counter({
+            (r["form"], r["M"], r["N"], r["dtype"]): r["launches"]
+            for r in d["launches_by_form_shape_dtype"]})
     by_phase["child"]["waited_s"] = waited
     by_phase["child"]["until_joined_s"] = time.time() - t0
     return by_phase
@@ -2871,7 +3422,8 @@ def second_process(parent_pid):
     for name, fn in (("corpus", corpus_phase),
                      ("uc_fallback", uc_fallback_pass),
                      ("sslp", sslp_phase), ("golden", golden_phase),
-                     ("compact", lambda: compact_phase(true_iter0))):
+                     ("compact", lambda: compact_phase(true_iter0)),
+                     ("algorithms", algorithms_phase)):
         t = time.time()
         fn()
         emit({"phase": f"{name}_done", "s": time.time() - t})
@@ -2966,9 +3518,18 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
     drv, _, _ = driver_phase(wrow, wsplit)
     emit({"phase": "driver_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
+    t = time.time()
+    alg_main = algorithms_phase(ALG_MAIN, "algorithms_main")
+    emit({"phase": "algorithms_main_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
     second = join_second_process(child)
-    corpus, ucf, cp = (second[k] for k in ("corpus", "uc_fallback",
-                                            "compact"))
+    corpus, ucf, cp, alg = (second[k] for k in (
+        "corpus", "uc_fallback", "compact", "algorithms"))
+    alg_launched = alg["launched"] + alg_main["launched"]
+    for case, shape, _ in ALG_KERNEL_CASES:
+        check(alg_launched[("dense", shape[1], shape[2], "float32")] > 0,
+              f"the dense form at {case}'s {shape} launched no time on "
+              "the algorithms path")
     emit({"phase": "second_process_done", "s": second["child"]["s"],
           "waited_s": second["child"]["waited_s"],
           "total_s": time.time() - t_all})
@@ -3073,6 +3634,33 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
         check(n32 > 0, f"the dense form at {case}'s (M, N) = "
               f"({f32['M']}, {f32['N']}) launched no time in f32 on the "
               "corpus path")
+        kernels.append(entry)
+    # the dense form at the algorithms' new shapes, with their launches
+    # on the algorithms path (FWPH's hull QP, aircondB's bundles)
+    for case, shape, _ in ALG_KERNEL_CASES:
+        f32 = rows[(case, "float32")]
+        n32 = alg_launched[("dense", shape[1], shape[2], "float32")]
+        entry = {
+            "name": f"pdhg_chunk_{case}", "route": "cuda",
+            "source": "mpisppy_tpu_torch/csrc/pdhg_chunk.cu",
+            "replaces": "mpisppy_tpu/ops/pallas_pdhg.py:106",
+            "launches": n32,
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a chunk of "
+                            "PDHG steps",
+            "form": "dense", "dtype": "float32", "shape": list(shape),
+            "variant_source": f32["variant"]["source"],
+            "share_of_bound": f32["share_of_bound"],
+            "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"]}
+        f64 = rows.get((case, "float64"))
+        if f64 is not None:
+            entry["f64"] = {**{k: f64[k] for k in keys + ("variant",)},
+                            "launches": alg_launched[
+                                ("dense", shape[1], shape[2], "float64")]}
+        check(n32 > 0, f"the dense form at {case}'s {shape} launched no "
+              "time in f32 on the algorithms path")
         kernels.append(entry)
     return {"kernels": kernels}
 

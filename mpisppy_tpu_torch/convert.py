@@ -1,7 +1,8 @@
 """Carry problem and solver state into the port from plain arrays.
 
-The JAX package's `ScenarioBatch` (with its `TreeInfo`; farmer, uc
-and sslp batches alike), `PreparedBatch`, `ConsensusSpec` and `PHState`
+The JAX package's `ScenarioBatch` (with its `TreeInfo` and its
+`var_prob`, the variable_probability weights; farmer, uc and sslp
+batches alike), `PreparedBatch`, `ConsensusSpec` and `PHState`
 cross over as plain dicts of numpy arrays keyed by the JAX
 dataclasses' field names; `to_arrays` produces
 such a dict from any dataclass whose array fields support
@@ -77,8 +78,6 @@ def batch_from_arrays(d, device=None) -> ScenarioBatch:
             int(s) for s in np.asarray(stage_of).reshape(-1)),
         nonant_names=tuple(tr.get("nonant_names", ())),
         scen_names=tuple(tr.get("scen_names", ())))
-    if d.get("var_prob") is not None:
-        raise not_ported("variable_probability", 10)
     return ScenarioBatch(
         c=_t(d["c"], dev), qdiag=_t(d["qdiag"], dev), A=_operator(d["A"], dev),
         row_lo=_t(d["row_lo"], dev), row_hi=_t(d["row_hi"], dev),
@@ -89,7 +88,8 @@ def batch_from_arrays(d, device=None) -> ScenarioBatch:
         tree=tree,
         stage_cost_c=_t(d.get("stage_cost_c"), dev),
         var_names=tuple(d.get("var_names", ())),
-        model_meta=d.get("model_meta"))
+        model_meta=d.get("model_meta"),
+        var_prob=_t(d.get("var_prob"), dev))
 
 
 def prep_from_arrays(d, device=None) -> PreparedBatch:

@@ -14,10 +14,13 @@ improvement of a best bound sets the hub.best_outer / hub.best_inner
 gauges and a hub.bounds counter sample on the trace, and each
 `PHHub.sync()` is a hub.sync span.
 
-Not ported yet: `APHHub` and `LShapedHub` (ROADMAP.md queue A item 10),
-the multiproc supervisor (item 11: `supervisor` stays None) and the
-wiring of an extension to its spoke's window for `cross_scen_spoke`
-(item 11).
+`APHHub` runs APH (`opt/aph.py`) behind PHHub's wire protocol;
+`LShapedHub` runs L-shaped (`opt/lshaped.py`), sends its candidate x̂
+to nonant spokes and feeds no W spokes.
+
+Not ported yet: the multiproc supervisor (ROADMAP.md queue A item 11:
+`supervisor` stays None) and the wiring of an extension to its spoke's
+window for `cross_scen_spoke` (item 11).
 """
 
 from __future__ import annotations
@@ -405,10 +408,59 @@ class PHHub(Hub):
 
 
 class APHHub(PHHub):
-    def __init__(self, *args, **kwargs):
-        raise not_ported("APHHub (APH as hub)", 10)
+    """APH as hub: PHHub's wire protocol (APH mirrors its W and x into
+    `opt.state` after every superstep); main() runs APH_main."""
+
+    def main(self):
+        return self.opt.APH_main(spcomm=self, finalize=False)
 
 
 class LShapedHub(Hub):
-    def __init__(self, *args, **kwargs):
-        raise not_ported("LShapedHub (L-shaped as hub)", 10)
+    """L-shaped as hub: sends the candidate x̂ to nonant spokes (no W
+    spokes), receives bounds, gap termination."""
+
+    def setup_hub(self):
+        self.wire_spokes()
+        if self.w_idx:
+            raise RuntimeError(
+                "LShapedHub cannot feed W spokes (reference hub.py:628)")
+
+    def sync(self, send_nonants=True):
+        with self.telemetry.span("hub.sync"):
+            self._drain_failures()
+            if send_nonants:
+                self.send_nonants()
+            if self.drive_spokes_inline:
+                self._step_spokes()
+            self.receive_outerbounds()
+            self.receive_innerbounds()
+
+    def is_converged(self):
+        # the hub's own loop gives both bounds; spokes may improve the
+        # inner one
+        ob = self.opt.outer_bound
+        if np.isfinite(ob):
+            self.OuterBoundUpdate(ob, char="B")
+        ib = self.opt.inner_bound
+        if np.isfinite(ib):
+            self.InnerBoundUpdate(ib, char="B")
+        self.screen_trace()
+        return self.determine_termination()
+
+    def current_iteration(self):
+        return self.opt.iter
+
+    def main(self):
+        return self.opt.lshaped_algorithm()
+
+    def send_nonants(self):
+        """Push the candidate x̂, replicated per scenario so that nonant
+        spokes see the usual (S*K,) layout."""
+        xhat = getattr(self.opt, "best_xhat", None)
+        if xhat is None or not self.nonant_idx_set:
+            return
+        b = self.opt.batch
+        flat = np.tile(np.asarray(xhat), (b.num_scens, 1)).reshape(-1)
+        for i in self.nonant_idx_set:
+            self.pairs[i].to_spoke.write(flat)
+            self._c_writes.inc()

@@ -69,10 +69,13 @@ class ScenarioBatch:
     stage_cost_c: Any = None   # (n_stages, S, N) or None
     var_names: tuple = ()
     model_meta: Any = None     # host-side metadata (numpy / python)
+    # (S, K) per-(scenario, nonant slot) averaging weights, the
+    # variable_probability feature; None: the scenario probabilities
+    var_prob: Any = None
 
     _TENSORS = ("c", "qdiag", "A", "row_lo", "row_hi", "lb", "ub",
                 "obj_const", "nonant_idx", "integer_mask",
-                "stage_cost_c")
+                "stage_cost_c", "var_prob")
 
     def to(self, device):
         """The same batch with every tensor on `device`."""
@@ -418,6 +421,7 @@ def stack_scenarios(scens, scen_names=None):
         tree=tree,
         stage_cost_c=None if first.stage_cost_c is None
         else cat("stage_cost_c", dim=1),
+        var_prob=None if first.var_prob is None else cat("var_prob"),
         var_names=first.var_names)
 
 
@@ -468,5 +472,7 @@ def pad_scenarios(batch: ScenarioBatch, to: int) -> ScenarioBatch:
         tree=new_tree,
         stage_cost_c=None if scc is None else torch.cat(
             [scc, scc.new_zeros((scc.shape[0], padn, scc.shape[2]))], 1),
+        var_prob=None if batch.var_prob is None
+        else padfield(batch.var_prob, 0.0),
         var_names=batch.var_names,
         model_meta=batch.model_meta)

@@ -38,8 +38,8 @@ coordinates on the unit square, travel time = ceil(distance / speed)
 (>= 1), lives ~ 1 + Poisson(2) per site-time, constant rescue times
 and depot inflows; per-scenario randomness re-draws the lives map.
 
-The LP relaxation runs through PH and `opt/ef`; the MIP extensive form
-(`opt/mip.ExtensiveFormMIP`, ROADMAP.md queue A item 10) refuses.
+The LP relaxation runs through PH and `opt/ef`; the integer model
+through the MIP extensive form (`opt/mip.ExtensiveFormMIP`).
 """
 
 from __future__ import annotations

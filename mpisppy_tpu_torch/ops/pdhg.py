@@ -377,6 +377,11 @@ def _residuals(x, y, c, qdiag, A, row_lo, row_hi, lb, ub, cavg=None):
     return pres, dres, gap, pobj, dobj
 
 
+# the primal weight's clip at a restart (ops/pdhg.py:1067 of the JAX
+# package)
+OMEGA_MIN, OMEGA_MAX = 1e-4, 1e4
+
+
 class PDHGSolver:
     """Restarted PDHG solver over a ScenarioBatch.  Typical
     use is through SPOpt.solve_loop, which supplies PH-modified
@@ -795,7 +800,7 @@ class PDHGSolver:
             om_new = torch.where(
                 ok, torch.exp(0.5 * torch.log(ratio)
                               + 0.5 * torch.log(omega)), omega)
-            om_new = torch.clamp(om_new, 1e-4, 1e4)
+            om_new = torch.clamp(om_new, OMEGA_MIN, OMEGA_MAX)
 
             m = do_restart
             m2 = m[:, None]

@@ -69,19 +69,26 @@ class ExtensiveForm(SPOpt):
             f"iters={int(res.iters)}", tee)
         return res
 
-    def _certified_ef_resolve(self, res):
+    def _certified_ef_resolve(self, res, c=None, qdiag=None, lb=None,
+                              ub=None, obj_const=None):
         """Full-batch float64 consensus re-solve, warm-started from the
         fast result, on the batch's device.  The consensus system
         cannot be cut to its stragglers as the per-scenario fallback
-        is."""
+        is.  c/qdiag/lb/ub/obj_const override the batch's own
+        (probability-weighted) arrays: a caller that solves a modified
+        EF (the MIP dive fixes integer boxes) passes its arrays."""
         t_cert = time.time()
         b = self.batch
         f64 = torch.float64
         p = b.prob.to(f64)[:, None]
-        c = b.c.to(f64) * p
-        qdiag = b.qdiag.to(f64) * p
-        obj_const = b.obj_const.to(f64) * p[:, 0]
-        lb, ub = b.lb.to(f64), b.ub.to(f64)
+
+        def pick(t, default):
+            return (default if t is None else t).to(f64)
+
+        c = pick(c, b.c.to(f64) * p)
+        qdiag = pick(qdiag, b.qdiag.to(f64) * p)
+        obj_const = pick(obj_const, b.obj_const.to(f64) * p[:, 0])
+        lb, ub = pick(lb, b.lb), pick(ub, b.ub)
         prep64 = prepare_batch(b.A.to(f64), b.row_lo.to(f64),
                                b.row_hi.to(f64), shared_cols=True)
         # hot_dtype pinned off: this is the certified f64 authority for

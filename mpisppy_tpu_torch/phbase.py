@@ -28,7 +28,7 @@ current values as arguments.  `options["ph_converger"]` (a class of
 `convergers/`) is polled once per iteration after the hub sync.
 
 Not ported yet (ROADMAP queue A): run checkpoints (`run_checkpoint`,
-`resume_from`), chaos injection, `reshard` and `variable_probability`.
+`resume_from`), chaos injection and `reshard`.
 Options that would select them raise NotImplementedError
 (spbase._UNPORTED_OPTIONS).
 """
@@ -85,9 +85,14 @@ class ScenarioView:
 
 def compute_xbar(batch: ScenarioBatch, x_na):
     """Per-node probability-weighted averages of nonant values
-    (phbase.py:85-111).  Returns (xbar, xsqbar), each (S, K)."""
+    (phbase.py:85-111).  A batch with `var_prob` (variable_probability)
+    weights each (scenario, slot) by it instead of the scenario
+    probability.  Returns (xbar, xsqbar), each (S, K)."""
     tree = batch.tree
-    p = tree.prob[:, None].expand(x_na.shape)
+    if batch.var_prob is not None:
+        p = batch.var_prob.to(x_na.dtype)
+    else:
+        p = tree.prob[:, None].expand(x_na.shape)
     _, segsum = node_segment_sum(tree.node_of, tree.num_nodes)
     denom = torch.clamp(segsum(p), min=1e-30)
     xbar = segsum(p * x_na) / denom
@@ -487,7 +492,9 @@ class PHBase(SPOpt):
         no certificate for LPs with finite boxes (the dual objective is
         a Lagrangian value at any iterate); otherwise uncertified
         scenarios are masked to -inf.  `eps` (or options
-        "lagrangian_eps") loosens this solve alone."""
+        "lagrangian_eps") loosens this solve alone.  Raises under
+        variable_probability (`check_W_bound_supported`)."""
+        self.check_W_bound_supported()
         self._tel.counter("ph.lagrangian_bound_calls").inc()
         b = self.batch
         W = self.state.W if W is None else W

@@ -8,20 +8,28 @@ in (`batch=`, a vectorized builder's), or built by calling
 name and stacking the results (`ir.stack_scenarios`).  There is no
 mesh: the port runs on one device.
 
-Not ported yet (ROADMAP queue A): `variable_probability` and
-multi-device sharding.
+`variable_probability` (an (S, K) array, or a callable batch -> (S, K))
+sets per-(scenario, nonant slot) averaging weights (`batch.var_prob`),
+which `phbase.compute_xbar` uses in place of the scenario
+probabilities; a node whose weights do not sum to one draws a warning.
+Algorithms that index A by scenario (`_needs_dense_A`: L-shaped, the
+Schur-complement IPM, the MIP dive) get a dense per-scenario A.
+
+Not ported yet (ROADMAP queue A): multi-device sharding.
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from . import global_toc, not_ported
 from .device import host, resolve_device
-from .ir import ScenarioBatch, stack_scenarios
+from .ir import ScenarioBatch, node_segment_sum, stack_scenarios
 
 # options whose machinery this slice does not carry, with the ROADMAP.md
 # queue A item that ports it: refusing them beats ignoring them
@@ -29,6 +37,9 @@ _UNPORTED_OPTIONS = {"resume_from": 6, "run_checkpoint": 6, "chaos": 6}
 
 
 class SPBase:
+    # algorithms that index A by scenario set this; SPBase then builds
+    # the dense per-scenario A of a shared or split batch once
+    _needs_dense_A = False
 
     def __init__(self, options, all_scenario_names, scenario_creator=None,
                  scenario_denouement=None, all_nodenames=None,
@@ -38,8 +49,6 @@ class SPBase:
         for key, item in _UNPORTED_OPTIONS.items():
             if self.options.get(key) is not None:
                 raise not_ported(f"option {key!r}", item)
-        if variable_probability is not None:
-            raise not_ported("variable_probability", 10)
         self.all_scenario_names = list(all_scenario_names)
         self.all_nodenames = all_nodenames
         self.scenario_creator = scenario_creator
@@ -56,7 +65,20 @@ class SPBase:
                 [scenario_creator(name, **kw)
                  for name in self.all_scenario_names],
                 scen_names=self.all_scenario_names)
+        if self._needs_dense_A and (batch.shared_A or batch.split_A):
+            batch = batch.densify()
         self.n_real_scens = len(self.all_scenario_names)
+        if variable_probability is not None:
+            vp = (variable_probability(batch)
+                  if callable(variable_probability)
+                  else variable_probability)
+            vp = torch.as_tensor(np.asarray(vp)).to(batch.c.dtype)
+            if tuple(vp.shape) != (batch.num_scens, batch.num_nonants):
+                raise ValueError(
+                    f"variable_probability must be (S, K) = "
+                    f"({batch.num_scens}, {batch.num_nonants}), "
+                    f"got {tuple(vp.shape)}")
+            batch = dataclasses.replace(batch, var_prob=vp)
         self.batch = batch.to(self.device)
         self._verify_probabilities()
         self.is_minimizing = True
@@ -71,6 +93,18 @@ class SPBase:
             raise RuntimeError(
                 f"scenario probabilities sum to {tot}, not 1 "
                 "(reference hard-quits here too, spbase.py:470)")
+        if self.batch.var_prob is not None:
+            # per-variable weights should sum to 1 within each node
+            # (the reference warns, spbase.py:457-502)
+            tree = self.batch.tree
+            _, segsum = node_segment_sum(tree.node_of, tree.num_nodes)
+            bad = float(torch.max(torch.abs(
+                segsum(self.batch.var_prob) - 1.0)))
+            if bad > 1e-6:
+                global_toc(
+                    f"WARNING: variable_probability sums deviate from 1 "
+                    f"by up to {bad:.3g} within a node "
+                    "(reference warns here too, spbase.py:483)")
 
     # -- solution writers (spbase.py:618-651 of the JAX package) ----------
     def write_first_stage_solution(self, path, xbar_root):

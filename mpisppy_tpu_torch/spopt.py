@@ -494,9 +494,15 @@ class SPOpt(SPBase):
     def check_W_bound_supported(self):
         """W-based Lagrangian bounds are valid because the probability-
         weighted W sums to zero per node.  Under variable_probability
-        that fails and the JAX package raises here; the port refuses
-        variable_probability at construction (ROADMAP queue A item 10),
-        so every batch it holds supports the bound."""
+        the x̄ weights differ from the scenario probabilities, that sum
+        no longer telescopes, and such a bound would be wrong: raise
+        (spopt.py:669-677 of the JAX package)."""
+        if self.batch.var_prob is not None:
+            raise NotImplementedError(
+                "W-based Lagrangian bounds are not valid under "
+                "variable_probability (prob-weighted W no longer "
+                "telescopes to zero per node); use the EF consensus "
+                "solve or Iter0's W-free bound instead")
 
     @property
     def all_bounds_finite(self):

@@ -8,9 +8,12 @@ Module contract: the model module exports
     inparser_adder(cfg)
     kw_creator(cfg) -> keyword arguments of the builder or creator
 `build_batch` is preferred where both exist.  A `MULTISTAGE` module's
-`build_batch(**kw)` sizes the tree itself from the branching factors
-that `kw_creator` parses from `--branching-factors`; the scenario
-names follow from the batch.  A module with `scenario_creator` only
+`build_batch(**kw)`, and one whose `build_batch` takes no `num_scens`
+(aircondB: bundles of a tree), sizes the tree itself from the
+branching factors that `kw_creator` parses from `--branching-factors`;
+the scenario names are the batch's own.  (The JAX package passes
+aircondB a positional scenario count, which its `build_batch` refuses
+with a TypeError.)  A module with `scenario_creator` only
 gets its batch built once by the hub's SPBase (one creator call per
 scenario name, stacked), and every spoke shares it.
 
@@ -105,10 +108,16 @@ class Amalgamator:
                     break
         kw.update(self.batch_kwargs)
         kw["device"] = self.device
-        if getattr(m, "MULTISTAGE", False):
-            # multistage modules size themselves from branching factors
+        if getattr(m, "MULTISTAGE", False) or (
+                hasattr(m, "build_batch")
+                and "num_scens" not in inspect.signature(
+                    m.build_batch).parameters):
+            # multistage modules and aircondB's bundles size themselves
+            # from branching factors
             batch = m.build_batch(**kw)
-            return batch, m.scenario_names_creator(batch.num_scens)
+            names = list(batch.tree.scen_names) or \
+                m.scenario_names_creator(batch.num_scens)
+            return batch, names
         num_scens = int(cfg.get("num_scens", 3))
         names = m.scenario_names_creator(num_scens)
         if hasattr(m, "build_batch"):

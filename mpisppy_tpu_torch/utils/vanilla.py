@@ -11,25 +11,27 @@ dicts' `opt_kwargs` (the hub's device is the spokes' default).
 
 The extension adders (`extension_adder`, `add_fixer`, `add_norm_rho`,
 `add_multi_rho`, `add_wtracker`) attach `extensions/` classes to a hub
-dict.  Not ported yet, each raising where selected: `aph_hub`,
-`lshaped_hub`, `fwph_spoke`, `xhatlshaped_spoke` (item 10).  Each
-spoke factory resolves its own `{root}_solver_*` options through
-`utils/solver_spec.py`.
+dict.  Each spoke factory resolves its own `{root}_solver_*` options
+through `utils/solver_spec.py` (FWPH's root is `fwph`).
 """
 
 from __future__ import annotations
 
 import json
 
-from .. import not_ported
-from ..cylinders.hub import PHHub
+from ..cylinders.fwph_spoke import FrankWolfeOuterBound
+from ..cylinders.hub import APHHub, LShapedHub, PHHub
 from ..cylinders.lagranger_bounder import LagrangerOuterBound
 from ..cylinders.lagrangian_bounder import LagrangianOuterBound
+from ..cylinders.lshaped_bounder import XhatLShapedInnerBound
 from ..cylinders.slam_heuristic import SlamMaxHeuristic, SlamMinHeuristic
 from ..cylinders.xhatlooper_bounder import XhatLooperInnerBound
 from ..cylinders.xhatshufflelooper_bounder import XhatShuffleInnerBound
 from ..cylinders.xhatspecific_bounder import XhatSpecificInnerBound
 from ..cylinders.xhatxbar_bounder import XhatXbarInnerBound
+from ..fwph.fwph import FWPH
+from ..opt.aph import APH
+from ..opt.lshaped import LShapedMethod
 from ..opt.ph import PH
 from .solver_spec import solver_specification
 from .xhat_eval import Xhat_Eval
@@ -93,12 +95,38 @@ def ph_hub(cfg, scenario_creator, scenario_denouement,
     }
 
 
-def aph_hub(*args, **kwargs):
-    raise not_ported("vanilla.aph_hub (APH)", 10)
+def aph_hub(cfg, scenario_creator, scenario_denouement,
+            all_scenario_names, scenario_creator_kwargs=None,
+            ph_extensions=None, extension_kwargs=None, rho_setter=None,
+            all_nodenames=None, batch=None):
+    """ph_hub with APH as the hub's algorithm."""
+    d = ph_hub(cfg, scenario_creator, scenario_denouement,
+               all_scenario_names, scenario_creator_kwargs,
+               ph_extensions, extension_kwargs, rho_setter,
+               all_nodenames, batch)
+    d["hub_class"] = APHHub
+    d["opt_class"] = APH
+    return d
 
 
-def lshaped_hub(*args, **kwargs):
-    raise not_ported("vanilla.lshaped_hub (L-shaped)", 10)
+def lshaped_hub(cfg, scenario_creator, scenario_denouement,
+                all_scenario_names, scenario_creator_kwargs=None,
+                batch=None):
+    """L-shaped as the hub: max_iter from --max-iterations, tol from
+    --convthresh."""
+    opts = shared_options(cfg)
+    opts.update({"max_iter": cfg.get("max_iterations", 50),
+                 "tol": cfg.get("convthresh", 1e-6)})
+    return {
+        "hub_class": LShapedHub,
+        "hub_kwargs": {"options": _hub_options(cfg)},
+        "opt_class": LShapedMethod,
+        "opt_kwargs": dict(options=opts,
+                           all_scenario_names=all_scenario_names,
+                           scenario_creator=scenario_creator,
+                           scenario_creator_kwargs=scenario_creator_kwargs,
+                           batch=batch),
+    }
 
 
 def _spoke(spoke_class, opt_class, cfg, scenario_creator,
@@ -122,8 +150,14 @@ def _spoke(spoke_class, opt_class, cfg, scenario_creator,
     }
 
 
-def fwph_spoke(*args, **kwargs):
-    raise not_ported("vanilla.fwph_spoke (FWPH)", 10)
+def fwph_spoke(cfg, scenario_creator, scenario_denouement,
+               all_scenario_names, scenario_creator_kwargs=None,
+               batch=None):
+    # explicit root: the derived name would be 'frankwolfe', but the
+    # flag convention (fwph_solver_*) uses 'fwph'
+    return _spoke(FrankWolfeOuterBound, FWPH, cfg, scenario_creator,
+                  scenario_denouement, all_scenario_names,
+                  scenario_creator_kwargs, batch, solver_root="fwph")
 
 
 def lagrangian_spoke(cfg, scenario_creator, scenario_denouement,
@@ -188,8 +222,12 @@ def xhatxbar_spoke(cfg, scenario_creator, scenario_denouement,
                   scenario_creator_kwargs, batch)
 
 
-def xhatlshaped_spoke(*args, **kwargs):
-    raise not_ported("vanilla.xhatlshaped_spoke (L-shaped xhat)", 10)
+def xhatlshaped_spoke(cfg, scenario_creator, scenario_denouement,
+                      all_scenario_names, scenario_creator_kwargs=None,
+                      batch=None):
+    return _spoke(XhatLShapedInnerBound, Xhat_Eval, cfg,
+                  scenario_creator, scenario_denouement,
+                  all_scenario_names, scenario_creator_kwargs, batch)
 
 
 def slammax_spoke(cfg, scenario_creator, scenario_denouement,
@@ -214,13 +252,11 @@ def build_spokes(cfg, scenario_creator, scenario_denouement,
     """The flag-driven spoke list (the one home of the cfg-flag ->
     factory dispatch)."""
     sk = scenario_creator_kwargs
-    if cfg.get("fwph"):
-        fwph_spoke()
-    if cfg.get("xhatlshaped"):
-        xhatlshaped_spoke()
     args = (cfg, scenario_creator, scenario_denouement,
             all_scenario_names)
     spokes = []
+    if cfg.get("fwph"):
+        spokes.append(fwph_spoke(*args, sk, batch=batch))
     if cfg.get("lagrangian"):
         spokes.append(lagrangian_spoke(*args, sk, batch=batch))
     if cfg.get("lagranger"):
@@ -239,6 +275,8 @@ def build_spokes(cfg, scenario_creator, scenario_denouement,
                                          batch=batch))
     if cfg.get("xhatxbar"):
         spokes.append(xhatxbar_spoke(*args, sk, batch=batch))
+    if cfg.get("xhatlshaped"):
+        spokes.append(xhatlshaped_spoke(*args, sk, batch=batch))
     if cfg.get("slammax"):
         spokes.append(slammax_spoke(*args, sk, batch=batch))
     if cfg.get("slammin"):

@@ -16,8 +16,9 @@
   the JAX package's stage-1 decisions.
 * `stack_scenarios` refuses mismatched shapes and nonant layouts.
 * What stays refused names its ROADMAP.md item: aircond's
-  `scenario_source` (12), the MIP extensive form that usar's integer
-  model needs (10), aircondB (10) and acopf3's SOC relaxation (9).
+  `scenario_source` (12) and acopf3's SOC relaxation (9); the MIP
+  extensive form that usar's integer model needs and aircondB (item
+  10, ported since) construct and run.
 """
 
 import dataclasses
@@ -273,18 +274,31 @@ def _cfg():
                                   "aircondB.amalgamator",
                                   "acopf3.soc"])
 def test_still_refused_name_their_item(case):
-    item = {"aircond.scenario_source": 12, "acopf3.soc": 9}.get(case, 10)
+    """What is still refused names its item; the item-10 parts ported
+    since (the MIP EF, aircondB) now construct or run."""
+    if case == "opt.mip.ExtensiveFormMIP":
+        # usar's integer model, the MIP EF's first user in the corpus
+        from mpisppy_tpu_torch.models import usar
+        b = usar.build_batch(2, time_horizon=3, device="cpu")
+        ef = mip.ExtensiveFormMIP({}, list(b.tree.scen_names), batch=b,
+                                  device="cpu")
+        assert ef.consensus.num_nodes == b.tree.num_nodes
+        return
+    if case == "aircondB.build_batch":
+        bb = aircondB.build_batch((3, 2), device="cpu")
+        assert bb.num_scens == 3 and int(bb.tree.node_of.max()) == 0
+        return
+    if case == "aircondB.amalgamator":
+        am = amalgamator.from_module(aircondB, _cfg(), args=["--EF"],
+                                     device="cpu")
+        am.run()
+        assert am.ef.batch.num_scens == 3
+        return
+    item = {"aircond.scenario_source": 12, "acopf3.soc": 9}[case]
     match = f"ROADMAP.md queue A item {item}$"
     with pytest.raises(NotImplementedError, match=match):
         if case == "aircond.scenario_source":
             aircond.scenario_source(6, {"branching_factors": "3,2"})
-        elif case == "opt.mip.ExtensiveFormMIP":
-            mip.ExtensiveFormMIP({}, ["scen0"], device="cpu")
-        elif case == "aircondB.build_batch":
-            aircondB.build_batch((3, 2), device="cpu")
-        elif case == "aircondB.amalgamator":
-            amalgamator.from_module(aircondB, _cfg(), args=["--EF"],
-                                    device="cpu").run()
         else:
             acopf3.build_soc_batch((2, 2), device="cpu")
     if case == "acopf3.soc":

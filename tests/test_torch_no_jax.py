@@ -11,8 +11,10 @@
   on, imports every module of `extensions/` and `convergers/`, runs
   `utils/amalgamator` in EF mode, imports every module of `models/`,
   runs hydro's EF through the amalgamator's multistage path and its
-  scenario_creator through SPBase, and finds no `jax` and no
-  `mpisppy_tpu.*` module loaded.
+  scenario_creator through SPBase, imports L-shaped, APH, FWPH, their
+  cylinders and the bundle modules, runs the Schur-complement IPM and
+  PH on bundles, and finds no `jax` and no `mpisppy_tpu.*` module
+  loaded.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
 
@@ -51,7 +53,8 @@ def test_ast_no_jax_or_jax_package_imports():
     scanned = {p.relative_to(ROOT).parts[1] for p in files
                if p.parent != ROOT}
     assert {"cylinders", "resilience", "utils", "ops", "opt",
-            "models", "telemetry", "extensions", "convergers"} <= scanned
+            "models", "telemetry", "extensions", "convergers",
+            "fwph"} <= scanned
     assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
     assert ROOT / "mpisppy_tpu_torch" / "log.py" in files
     assert {p.name for p in files if p.parent.name == "telemetry"} == {
@@ -137,6 +140,18 @@ sb = SPBase({}, hydro.scenario_names_creator(9),
             scenario_creator=hydro.scenario_creator,
             scenario_creator_kwargs={"branching_factors": [3, 3]},
             device="cpu")
+# the remaining algorithms: import each; run the Schur-complement IPM
+# and a bundled PH iteration
+from mpisppy_tpu_torch.cylinders import fwph_spoke, lshaped_bounder
+from mpisppy_tpu_torch.fwph import fwph
+from mpisppy_tpu_torch.opt import aph, lshaped, sc
+from mpisppy_tpu_torch.utils import bundles, pickle_bundle
+sc_obj, _ = sc.SchurComplement({}, ["s0", "s1", "s2"],
+                               batch=farmer.build_batch(3, device="cpu"),
+                               device="cpu").solve()
+bph = PH({"PHIterLimit": 1}, ["b0", "b1"], batch=bundles.bundle_batch(
+    farmer.build_batch(4, device="cpu"), 2), device="cpu")
+bph.ph_main()
 with open(os.path.join(tdir, "trace.json")) as f:
     rows = [e["args"]["name"] for e in json.load(f)["traceEvents"]
             if e["ph"] == "M"]
@@ -144,6 +159,7 @@ loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mpisppy_tpu"))
 wheel = sorted(m for m in sys.modules
                if m.startswith(("mpisppy_tpu_torch.cylinders.",
+                                "mpisppy_tpu_torch.fwph.",
                                 "mpisppy_tpu_torch.resilience.",
                                 "mpisppy_tpu_torch.utils.",
                                 "mpisppy_tpu_torch.extensions.",
@@ -155,6 +171,7 @@ wheel = sorted(m for m in sys.modules
 print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
                   "ef_obj": ama.EF_Obj, "hydro_ef": hama.EF_Obj,
                   "hydro_nodes": sb.batch.tree.num_nodes,
+                  "sc_obj": sc_obj,
                   "bounds": [ws.BestOuterBound, ws.BestInnerBound],
                   "traj": traj, "rows": rows,
                   "traffic": telemetry.traffic_counters()}))
@@ -184,6 +201,12 @@ def test_fresh_interpreter_port_run_loads_no_jax():
         "mpisppy_tpu_torch.model", "mpisppy_tpu_torch.scenario_tree",
         "mpisppy_tpu_torch.opt.mip"} <= set(res["wheel"])
     assert abs(res["hydro_ef"] - 186.17) < 0.01
+    # the remaining algorithms (ROADMAP.md queue A item 10)
+    assert {f"mpisppy_tpu_torch.{m}" for m in (
+        "opt.lshaped", "opt.aph", "opt.sc", "fwph.fwph",
+        "cylinders.lshaped_bounder", "cylinders.fwph_spoke",
+        "utils.bundles", "utils.pickle_bundle")} <= set(res["wheel"])
+    assert abs(res["sc_obj"] - -108390.0) < 1.0
     assert res["hydro_nodes"] == 4
     outer, inner = res["bounds"]
     assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner
@@ -220,9 +243,11 @@ def test_unported_options_refuse():
     # telemetry is ported: the option configures the handle
     assert PH({"telemetry": "on"}, ["s0", "s1", "s2"], batch=b,
               device="cpu")._tel.enabled
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PH({}, ["s0", "s1", "s2"], batch=b, device="cpu",
-           variable_probability=np.ones((3, 3)))
+    # variable_probability is ported: the option sets batch.var_prob
+    vp = np.full((3, 3), 1.0 / 3.0)
+    ph = PH({}, ["s0", "s1", "s2"], batch=b, device="cpu",
+            variable_probability=vp)
+    np.testing.assert_array_equal(ph.batch.var_prob.numpy(), vp)
     # the scenario_creator path is ported: without a batch the creator
     # is required
     with pytest.raises(ValueError, match="batch or a scenario_creator"):

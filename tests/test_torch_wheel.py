@@ -25,8 +25,9 @@
   parses to the same options in both packages, the factories build the
   same dicts, and the port's dicts spin.
 * Every unported flag, backend, mode and option raises
-  NotImplementedError naming its ROADMAP item; the telemetry and solver
-  option cases ported since check that those parts work.
+  NotImplementedError naming its ROADMAP item; the telemetry, solver
+  option, APH, L-shaped and FWPH cases ported since check that those
+  parts work.
 """
 
 import random
@@ -72,6 +73,8 @@ from mpisppy_tpu_torch.cylinders import hub, spcommunicator as spc
 from mpisppy_tpu_torch.cylinders.lagranger_bounder import LagrangerOuterBound
 from mpisppy_tpu_torch.cylinders.lagrangian_bounder import (
     LagrangianOuterBound)
+from mpisppy_tpu_torch.cylinders.fwph_spoke import FrankWolfeOuterBound
+from mpisppy_tpu_torch.cylinders.lshaped_bounder import XhatLShapedInnerBound
 from mpisppy_tpu_torch.cylinders.slam_heuristic import SlamMaxHeuristic
 from mpisppy_tpu_torch.cylinders.spoke import Spoke
 from mpisppy_tpu_torch.cylinders.xhatlooper_bounder import (
@@ -83,6 +86,9 @@ from mpisppy_tpu_torch.cylinders.xhatspecific_bounder import (
 from mpisppy_tpu_torch.cylinders.xhatxbar_bounder import XhatXbarInnerBound
 from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
+from mpisppy_tpu_torch.fwph.fwph import FWPH
+from mpisppy_tpu_torch.opt.aph import APH
+from mpisppy_tpu_torch.opt.lshaped import LShapedMethod
 from mpisppy_tpu_torch.opt.ph import PH
 from mpisppy_tpu_torch.resilience import bounds
 from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
@@ -712,16 +718,6 @@ UNPORTED = {
         11),
     "spoke_chaos": (lambda: WheelSpinner(
         _hub_dict(), [_spoke_dict(chaos={"crash_at_step": 1})]).spin(), 6),
-    "aph_hub_class": (lambda: hub.APHHub(None), 10),
-    "lshaped_hub_class": (lambda: hub.LShapedHub(None), 10),
-    "vanilla_aph_hub": (lambda: vanilla.aph_hub(_cfg(), None, None,
-                                                NAMES), 10),
-    "vanilla_lshaped_hub": (lambda: vanilla.lshaped_hub(_cfg(), None, None,
-                                                        NAMES), 10),
-    "vanilla_fwph": (lambda: vanilla.build_spokes(_cfg(fwph=True), None,
-                                                  None, NAMES), 10),
-    "vanilla_xhatlshaped": (lambda: vanilla.build_spokes(
-        _cfg(xhatlshaped=True), None, None, NAMES), 10),
 }
 
 
@@ -759,9 +755,35 @@ def _adder(name):
     return hub["opt_kwargs"]["extensions"] is not None
 
 
-# parts that raised until ported (ROADMAP.md queue A items 8, 5, 7 and
-# 9): each case now checks that the part works
+def _hub_of(hub_cls, opt_cls, opts):
+    """A hub of `hub_cls` over a farmer-3 optimizer, wired."""
+    opt = opt_cls(dict(OPTS, **opts), NAMES,
+                  batch=farmer.build_batch(S, device="cpu"), device="cpu")
+    h = hub_cls(opt, [], options={})
+    h.setup_hub()
+    return isinstance(h, hub_cls) and h.pairs == []
+
+
+def _spoke_selected(flag, spoke_cls, opt_cls):
+    """build_spokes turns the cfg flag into the spoke's dict."""
+    (d,) = vanilla.build_spokes(_cfg(**{flag: True}), None, None, NAMES)
+    return d["spoke_class"] is spoke_cls and d["opt_class"] is opt_cls
+
+
+# parts that raised until ported (ROADMAP.md queue A items 8, 5, 7, 9
+# and 10): each case now checks that the part works
 PORTED = {
+    "aph_hub_class": lambda: _hub_of(hub.APHHub, APH, {}),
+    "lshaped_hub_class": lambda: _hub_of(hub.LShapedHub, LShapedMethod,
+                                         {"max_iter": 2}),
+    "vanilla_aph_hub": lambda: vanilla.aph_hub(
+        _cfg(), None, None, NAMES)["hub_class"] is hub.APHHub,
+    "vanilla_lshaped_hub": lambda: vanilla.lshaped_hub(
+        _cfg(), None, None, NAMES)["opt_class"] is LShapedMethod,
+    "vanilla_fwph": lambda: _spoke_selected("fwph", FrankWolfeOuterBound,
+                                            FWPH),
+    "vanilla_xhatlshaped": lambda: _spoke_selected(
+        "xhatlshaped", XhatLShapedInnerBound, Xhat_Eval),
     "scenario_creator": lambda: farmer.scenario_creator(
         "scen0", device="cpu").num_scens == 1,
     "add_fixer": lambda: _adder("add_fixer"),
