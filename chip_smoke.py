@@ -7,20 +7,31 @@ NVIDIA card.
 Phases, one JSON line each (any failure exits non-zero):
   1. env      torch/CUDA versions, the card, nvidia-smi name + power limit
   2. build    nvcc build (or load) of csrc/pdhg_chunk.cu, and what ptxas
-              reports for each of its 21 instantiated variants
-              (registers, spills, stack); no variant may spill
+              reports for each of its 27 instantiated kernels (9 of the
+              tiled kernel, A in registers; 18 of the cluster kernel, A
+              resident or streamed): registers, spills, stack; no
+              kernel may spill
   3. kernel   each form of the PDHG chunk kernel (dense (S, M, N),
               shared (1, M, N), split SplitA) against its plain torch
               version at the main paths' shapes (farmer S=1000,
               crops_multiplier=10: M=61, N=120; n_steps=40; inputs from
               the dense and the split prep; and the shared form at UC's
-              fallback shape (1, 174, 114), S=250, A staged in shared
-              memory) with A stored in f32, f64 and bf16 (f32 vectors);
+              fallback shape (1, 174, 114), S=250, on the cluster
+              kernel with A resident in shared memory) with A stored in
+              f32, f64 and bf16 (f32 vectors);
               the shared and split forms must equal the dense kernel on
               the assembled matrices exactly; timings, the bound, the
-              variant, blocks per SM and waves.  Then the dense and
-              split forms (f32) on a compacted slab: the prep gathered
-              to COMPACT_S=256 of the 1000 rows with ops.pdhg._gather_prep
+              variant, its cluster size, blocks per SM, the clusters
+              the card holds at once and the waves.  The bound counts A
+              once, plus n_steps x what of a wave's A (the scenarios the
+              card holds at once) exceeds the card's shared memory and
+              L2, for each wave (chunk_bytes).  Then the dense and split
+              forms (f32) on a compacted slab: the prep gathered to
+              COMPACT_S=256 of the 1000 rows with
+              ops.pdhg._gather_prep; and `cluster_forms`: the shared and
+              split forms on the cluster kernel at UC's fallback shape,
+              resident and streamed, at three cluster sizes, each
+              bit-equal to the dense kernel on the assembled matrices
   4. slice    PH on farmer at full width (S=1000, crops_multiplier=10,
               f32, the bench's options with its dense prep,
               no_split_prep=True): Iter0, a few PH iterations, one xhat
@@ -120,9 +131,10 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
               scenario_creator path equal to build_batch for hydro and
               farmer (S=100, cm=10).  The kernel phase holds the dense
               form at the corpus's shapes against its plain version:
-              A in shared memory (sizes), in global memory (usar), a
-              nonzero qs with A in shared / global memory (acopf3
-              ieee14, f32 / f64) and in registers (acopf3 (2,2)).
+              the cluster kernel with A resident (sizes, usar, acopf3
+              ieee14 with a nonzero qs in f32 and f64, and its f64
+              certify at S'=4) and the register tile (acopf3 (2,2)).
+              acopf3's sub-run must launch the cluster kernel.
  14. algorithms the remaining algorithms, each through its users' entry
               point on farmer S=1000, cm=10 unless said (ALG_CUTS lists
               the cuts): `alg_farmer_ef`, the f64 EF optimum by HiGHS;
@@ -151,8 +163,8 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
               PH with a non-uniform variable_probability, x̄ against a
               numpy weighting.  The kernel phase holds the dense form at
               the two new shapes against its plain version: the hull QP
-              (f32, f64, A in shared memory) and the bundles (f32, A in
-              global memory).
+              (f32, f64, A resident) and the bundles (f32, A streamed);
+              alg_fwph and alg_bundles must launch the cluster kernel.
 The corpus phase, then the uc fallback pass, sslp, the golden, the
 compact phase and the algorithms sub-runs of ALG_CHILD (line
 `algorithms`) run in a second process on the same card (this script
@@ -438,12 +450,13 @@ ALG_CUTS = {
                                            "the card)",
                              "here": f"integer farmer-{ALG_MIP_S}"}}}
 # the dense kernel at the algorithms' new shapes: FWPH's hull QP at
-# (S, N+1, N+T) = (1000, 121, 136), A in shared memory (f32 and f64),
-# and aircondB's ten bundles of 100 scenarios, (10, 1552, 1600), A in
-# global memory (f32)
-ALG_KERNEL_CASES = (("hull_qp_fwph", (S, 121, 136), ("shared", "shared")),
+# (S, N+1, N+T) = (1000, 121, 136), A resident (f32 and f64), and
+# aircondB's ten bundles of 100 scenarios, (10, 1552, 1600), A streamed
+# (f32)
+ALG_KERNEL_CASES = (("hull_qp_fwph", (S, 121, 136),
+                     ("resident", "resident")),
                     ("bundles_aircondB", (10, 1552, 1600),
-                     ("global", None)))
+                     ("streamed", None)))
 # values the second process's phases share (the aircond HiGHS optimum)
 SHARED = {}
 # the corpus phase, the uc fallback pass, sslp, the golden and the
@@ -486,6 +499,11 @@ WHEEL_TELEMETRY_DIR = os.path.join("build", "wheel_row_telemetry")
 # length).  With A in bf16 both cast the same bf16 values up and run in
 # f32, so bf16 has f32's tolerance.
 TOL = {"float64": 1e-9, "float32": 2e-4, "bfloat16": 2e-4}
+# what each kernel row of the kernels line says of its launch: the
+# kernel (tiled or cluster), the cluster size, blocks per SM, the
+# clusters the card holds at once and the waves
+CLUSTER_KEYS = ("kernel", "cluster", "blocks_per_sm", "active_clusters",
+                "waves")
 
 
 def check(cond, msg):
@@ -548,13 +566,16 @@ def host_us(fn, n=50):
 
 
 def template_args(mangled):
-    """The template arguments of a mangled `pdhg_chunk_tiled<...>` name
-    (Itanium ABI: f float, d double, <len><name> a class, Li<n>E an
-    int), or None for another kernel."""
-    i = mangled.find("pdhg_chunk_tiledI")
-    if i < 0:
+    """The template arguments of a mangled `pdhg_chunk_tiled<...>` or
+    `pdhg_chunk_cluster<...>` name (Itanium ABI: f float, d double,
+    <len><name> a class, Li<n>E an int), or None for another kernel."""
+    for kernel in ("pdhg_chunk_tiledI", "pdhg_chunk_clusterI"):
+        i = mangled.find(kernel)
+        if i >= 0:
+            break
+    else:
         return None
-    rest, args = mangled[i + len("pdhg_chunk_tiledI"):], []
+    rest, args = mangled[i + len(kernel):], []
     while rest and rest[0] != "E":
         m = re.match(r"Li(-?\d+)E|(\d+)|([fd])", rest)
         if m is None:
@@ -573,10 +594,11 @@ def template_args(mangled):
 
 def ptxas_report(log):
     """What `nvcc -Xptxas -v` said about each kernel: its template
-    arguments (storage, compute, rows per thread, column vectors per
-    lane, warps, source of A: 0 registers / 1 shared / 2 global, form
-    of A: 0 dense / 1 shared / 2 split, min blocks per SM), registers,
-    stack, spill stores and loads."""
+    arguments (the tiled kernel: storage, compute, rows per thread,
+    column vectors per lane, warps, source of A 0 (registers), form of
+    A: 0 dense / 1 shared / 2 split, min blocks per SM; the cluster
+    kernel: storage, compute, source of A: 1 resident / 2 streamed,
+    form), registers, stack, spill stores and loads."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -598,6 +620,8 @@ def ptxas_report(log):
         name = k.pop("mangled")
         args = template_args(name)
         k["variant"] = ", ".join(args) if args else name
+        k["kernel"] = ("pdhg_chunk_cluster" if "pdhg_chunk_clusterI" in name
+                       else "pdhg_chunk_tiled")
     return out
 
 
@@ -619,7 +643,8 @@ def sass_summary(lib):
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
     for block in re.split(r"\n\s*Function : ", out.stdout)[1:]:
         args = template_args(block.split("\n", 1)[0].strip())
-        if not args or args[:7] != MAIN_F32:
+        if not args or args[:7] != MAIN_F32 or "pdhg_chunk_tiledI" not in \
+                block.split("\n", 1)[0]:
             continue
         ins = [(int(a, 16), i.strip()) for a, i in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
@@ -647,12 +672,13 @@ def build_phase():
     lib = pdhg_chunk.build()
     pdhg_chunk.load_library()
     report = ptxas_report(pdhg_chunk.build_log_path().read_text())
-    # for each of f32, f64 and bf16: the dense form with A in registers,
-    # shared or global memory, and the shared and split forms with A in
-    # registers or shared memory
-    check(len(report) == 21, f"ptxas reported {len(report)} kernels")
-    main = [k for k in report
-            if k["variant"].split(", ")[:7] == MAIN_F32]
+    # for each of f32, f64 and bf16: each form with A in registers (the
+    # tiled kernel) and with A resident or streamed (the cluster kernel)
+    check(len(report) == 27, f"ptxas reported {len(report)} kernels")
+    check(sum(k["kernel"] == "pdhg_chunk_cluster" for k in report) == 18,
+          "ptxas reported other than 18 cluster kernels")
+    main = [k for k in report if k["kernel"] == "pdhg_chunk_tiled"
+            and k["variant"].split(", ")[:7] == MAIN_F32]
     check(len(main) == 1, "no ptxas line for the main path's f32 variant")
     for k in report:
         check(k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0,
@@ -707,21 +733,47 @@ def solver_space_inputs(dtype, split=False, gather=None):
     return [p.A.contiguous()] + vec
 
 
-def chunk_bytes(A, vec):
+def on_chip_bytes():
+    """What the card can hold on chip between two reads of A: every SM's
+    opt-in shared memory (the library's query) plus the L2 cache
+    (torch's device properties)."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    props = torch.cuda.get_device_properties(0)
+    l2 = getattr(props, "L2_cache_size", None)
+    check(l2 is not None and l2 > 0, "torch reports no L2 size")
+    return props.multi_processor_count * pdhg_chunk.smem_optin() + l2
+
+
+def chunk_bytes(A, vec, n_steps=N_STEPS, on_chip=None, wave=None):
     """Bytes the chunk must move: each input read once (A at its storage
     width, a shared matrix once for all scenarios, a SplitA's shared
-    block once plus its per-scenario values and coordinates), each
-    output written once."""
+    block and coordinates once plus its per-scenario values), each
+    output written once; and, where the A of the `wave` scenarios the
+    card works on at once (default all S; the shared part once, the
+    per-scenario part `wave` times) exceeds what it holds on chip
+    (`on_chip`, default on_chip_bytes()), that excess again at every
+    step of each of the ceil(S / wave) waves:
+    |A| + n_steps x ceil(S / wave) x max(0, |A of a wave| - on_chip)."""
     from mpisppy_tpu_torch.ir import SplitA
+    S = vec[0].shape[0]
     if isinstance(A, SplitA):
-        a = (A.shared.numel() * A.shared.element_size()
-             + A.vals.numel() * A.vals.element_size()
-             + 2 * A.rows.numel() * A.rows.element_size())
+        shared = (A.shared.numel() * A.shared.element_size()
+                  + 2 * A.rows.numel() * A.rows.element_size())
+        each = A.vals.numel() * A.vals.element_size() // S
+    elif A.shape[0] == 1:
+        shared, each = A.numel() * A.element_size(), 0
     else:
-        a = A.numel() * A.element_size()
+        shared, each = 0, A.numel() * A.element_size() // S
+    wave = S if wave is None else max(1, min(S, wave))
+    if on_chip is None:
+        on_chip = on_chip_bytes()
     vin = sum(t.numel() * t.element_size() for t in vec)
     vout = 2 * (vec[6].numel() + vec[7].numel()) * vec[6].element_size()
-    return a + vin + vout
+    excess = max(0, shared + wave * each - on_chip)
+    return (shared + S * each + n_steps * -(-S // wave) * excess
+            + vin + vout)
 
 
 def measure_form(form, A, vec, dname, peak, bw, peak_name, n_sm):
@@ -765,14 +817,16 @@ def measure_form(form, A, vec, dname, peak, bw, peak_name, n_sm):
     wrapper_us = host_us(call)
     plain_ms = time_ms(lambda: ref(A, *vec, N_STEPS))
     _, M, N = A.shape
-    nbytes = chunk_bytes(A, vec)
+    variant, blocks, held = pdhg_chunk.occupancy(S, M, N, store, form)
+    # a wave: the scenarios the card holds at once (a cluster or tiled
+    # block each)
+    nbytes = chunk_bytes(A, vec, wave=held)
     # FLOP at the compute type's peak (bf16 storage computes in f32):
     # the two matvecs and the elementwise updates
     flops = N_STEPS * S * (4 * M * N + 10 * N + 8 * M)
     t_bytes = nbytes / bw * 1e3
     t_ops = flops / peak * 1e3
     bound = max(t_bytes, t_ops)
-    variant, blocks = pdhg_chunk.occupancy(M, N, store, form)
     return {
         "form": form, "dtype": dname, "S": S, "M": M, "N": N,
         "n_steps": N_STEPS, "max_abs_err": err_abs,
@@ -786,8 +840,10 @@ def measure_form(form, A, vec, dname, peak, bw, peak_name, n_sm):
         "peaks": {"card": peak_name, "bytes_per_s": bw,
                   "flops_per_s": peak},
         "variant": dataclasses.asdict(variant),
-        "blocks_per_sm": blocks, "sms": n_sm,
-        "waves": S / (blocks * n_sm),
+        "kernel": ("pdhg_chunk_tiled" if variant.source == "registers"
+                   else "pdhg_chunk_cluster"),
+        "cluster": variant.cluster, "blocks_per_sm": blocks, "sms": n_sm,
+        "active_clusters": held, "waves": S / held,
         "library_ms": None}
 
 
@@ -843,7 +899,7 @@ def kernel_phase(name):
             row = measure_form("shared" if form == "shared_uc" else form,
                                A, vec, dname, peak, bw, peak_name, n_sm)
             if form == "shared_uc":
-                check(row["variant"]["source"] == "shared",
+                check(row["variant"]["source"] == "resident",
                       f"UC's fallback shape took {row['variant']}")
                 row["case"] = "uc_fallback"
             rows[(form, dname)] = row
@@ -866,6 +922,75 @@ def kernel_phase(name):
         emit({"phase": "kernel", **row})
     rows.update(corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
     rows.update(alg_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
+    rows.update(cluster_forms_rows())
+    return rows
+
+
+def cluster_forms_rows():
+    """The shared and split forms on the cluster kernel, on both sources
+    of A: UC's fallback matrix (its Ruiz-scaled prep, shared (1, 174,
+    114), S=UC_FALLBACK_S) as the shared form, and as a SplitA with
+    per-scenario deltas at 2 M seeded slots (the shared block zero
+    there), in f32, f64 and bf16 storage; at the variant the card picks
+    and at forced variants (resident in clusters of 4, streamed in
+    clusters of 1 and 4).  Each must equal the dense kernel on the
+    assembled matrices bit for bit and match its plain version."""
+    import torch
+
+    from mpisppy_tpu_torch.ir import SplitA
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    V = pdhg_chunk.Variant
+    rows = {}
+    for store in (torch.float32, torch.float64, torch.bfloat16):
+        dname = str(store).replace("torch.", "")
+        args = uc_solver_space_inputs(
+            torch.float64 if store == torch.float64 else torch.float32)
+        shared, vec = args[0].to(store), args[1:]
+        S, M, N = vec[0].shape[0], shared.shape[1], shared.shape[2]
+        rng = np.random.default_rng(31)
+        nnz = 2 * M
+        r = rng.integers(0, M, nnz).astype(np.int32)
+        c = rng.integers(0, N, nnz).astype(np.int32)
+        r[-1], c[-1] = r[0], c[0]
+        block = shared[0].clone()
+        block[torch.as_tensor(r).long(), torch.as_tensor(c).long()] = 0
+        split = SplitA(shared=block.contiguous(),
+                       rows=torch.as_tensor(r, device=block.device),
+                       cols=torch.as_tensor(c, device=block.device),
+                       vals=torch.as_tensor(
+                           rng.standard_normal((S, nnz)) * 0.1,
+                           device=block.device).to(store).contiguous())
+        forms = {"shared": (shared, shared.expand(S, -1, -1).contiguous()),
+                 "split": (split, split.to_dense().contiguous())}
+        picked = pdhg_chunk.card_variant(S, M, N, store)
+        for v in (picked, V("resident", 4), V("streamed", 1, 4),
+                  V("streamed", 4, 4)):
+            out = {"phase": "kernel", "case": "cluster_forms",
+                   "dtype": dname, "S": S, "M": M, "N": N,
+                   "n_steps": N_STEPS, "variant": dataclasses.asdict(v),
+                   "picked": v == picked}
+            for form, (A, dense) in forms.items():
+                got = pdhg_chunk.fused_chunk(A, *vec, N_STEPS, variant=v)
+                want = pdhg_chunk.fused_chunk(dense, *vec, N_STEPS,
+                                              variant=v)
+                torch.cuda.synchronize()
+                vs_dense = max(float((g - w).abs().max())
+                               for g, w in zip(got, want))
+                check(vs_dense == 0.0,
+                      f"cluster_forms {form} {dname} {v} differs from the "
+                      f"dense kernel by {vs_dense}")
+                ref = pdhg_chunk.REFERENCE[form](A, *vec, N_STEPS)
+                err = max(float((g - w).abs().max())
+                          / max(1.0, float(w.abs().max()))
+                          for g, w in zip(got, ref))
+                check(err <= TOL[dname] and all(
+                    bool(torch.isfinite(g).all()) for g in got),
+                      f"cluster_forms {form} {dname} {v}: {err:.3e} from "
+                      f"its plain version")
+                out[form] = {"max_rel_err": err,
+                             "max_abs_err_vs_dense_kernel": vs_dense}
+            rows[("cluster_forms", dname, v)] = out
+            emit(out)
     return rows
 
 
@@ -875,6 +1000,7 @@ def reset_counts():
     from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
     pdhg_chunk.launches = 0
     pdhg_chunk.launch_shapes.clear()
+    pdhg_chunk.variant_launches.clear()
     pdhg.matmul_chunks = 0
     pdhg.consensus_chunks = 0
 
@@ -1654,11 +1780,18 @@ def uc_fallback_pass():
     launched = pdhg_chunk.launch_shapes.get(key, 0)
     check(launched > 0, f"the UC fallback pass never launched {key}: "
           f"{launch_table()}")
+    variants = launch_variants()
+    through = sum(r["launches"] for r in variants
+                  if (r["form"], r["S"], r["M"], r["N"], r["dtype"]) == key
+                  and r["variant"] in ("resident", "streamed"))
+    check(through == launched, f"the UC fallback pass launched {key} "
+          f"{launched} times, {through} through the cluster kernel")
     out = {"phase": "uc_fallback", "S": UC_FALLBACK_S, **UC_FALLBACK,
            "dtype": "float32", "wall_s": wall, "trivial_bound": trivial,
            "conv": ph.conv, "iter0_feas_mass": ph.iter0_feas_mass,
-           "launch_shapes": launch_table(),
-           "shared_174x114_launches": launched}
+           "launch_shapes": launch_table(), "launch_variants": variants,
+           "shared_174x114_launches": launched,
+           "cluster_launches": through}
     emit(out)
     return out
 
@@ -2529,17 +2662,20 @@ def driver_fixer():
 # ---- the model corpus ----------------------------------------------------
 
 def launch_variants():
-    """launch_table() with the kernel variant (where A is read from:
-    registers, shared or global memory) of each row."""
-    import torch
-
+    """The kernel's launches since the last reset_counts() by (form, S,
+    M, N, dtype, where A was held: "registers" (the tiled kernel),
+    "resident" or "streamed" (the cluster kernel), cluster size)."""
     from mpisppy_tpu_torch.ops import pdhg_chunk
-    rows = launch_table()
-    for r in rows:
-        r["variant"] = pdhg_chunk.pick_variant(
-            r["M"], r["N"], getattr(torch, r["dtype"]),
-            pdhg_chunk.smem_optin()).source
-    return rows
+    return [{"form": k[0], "S": k[1], "M": k[2], "N": k[3], "dtype": k[4],
+             "variant": k[5], "cluster": k[6], "launches": n}
+            for k, n in sorted(pdhg_chunk.variant_launches.items())]
+
+
+def cluster_launches(rows):
+    """The launches of launch_variants() rows that went through the
+    cluster kernel."""
+    return sum(r["launches"] for r in rows
+               if r["variant"] in ("resident", "streamed"))
 
 
 def model_solver_space_inputs(b):
@@ -2574,34 +2710,44 @@ def lp_solver_space_inputs(A, row_lo, row_hi, c, qdiag, lb, ub):
 
 
 # the dense kernel's variants that the corpus puts on a path: (row name,
-# batch builder (dtype) -> batch, the variant expected in f32 and f64)
+# batch builder (dtype) -> batch, the source of A expected in f32 and
+# f64 (None: no row in that dtype), the scenarios kept (None: all; the
+# f64 certify of acopf3 ieee14 re-solves S'=4 of its 12))
 def _corpus_kernel_cases():
     from mpisppy_tpu_torch.models import acopf3, sizes, usar
+
+    def ieee14(dt):
+        return acopf3.build_batch((3, 2, 2), case="ieee14", dtype=dt)
+
     return (
-        ("dense_shared_sizes", lambda dt: sizes.build_batch(3, dtype=dt),
-         ("shared", "shared")),
-        ("dense_global_usar", lambda dt: usar.build_batch(3, dtype=dt),
-         ("global", "global")),
-        ("qs_ieee14", lambda dt: acopf3.build_batch(
-            (3, 2, 2), case="ieee14", dtype=dt), ("shared", "global")),
+        ("dense_sizes", lambda dt: sizes.build_batch(3, dtype=dt),
+         ("resident", "resident"), None),
+        ("dense_usar", lambda dt: usar.build_batch(3, dtype=dt),
+         ("resident", "resident"), None),
+        ("qs_ieee14", ieee14, ("resident", "resident"), None),
+        ("qs_ieee14_certify", ieee14, (None, "resident"), 4),
         ("qs_registers_acopf3_22", lambda dt: acopf3.build_batch(
-            (2, 2), dtype=dt), ("registers", "registers")))
+            (2, 2), dtype=dt), ("registers", "registers"), None))
 
 
 def corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
     """The dense kernel at the corpus's shapes against its plain version
     (`fused_chunk_reference`), f32 and f64, on solver-space inputs from
-    the port's own prep of each model's batch: A in shared memory
-    (sizes), in global memory (usar), and a nonzero qs with A in shared
-    or global memory (acopf3 ieee14) and in registers (acopf3 (2,2))."""
+    the port's own prep of each model's batch: the cluster kernel with A
+    resident (sizes, usar, acopf3 ieee14 with a nonzero qs, and its f64
+    certify's S'=4) and the register tile (acopf3 (2,2))."""
     import torch
     rows = {}
-    for case, build, expect in _corpus_kernel_cases():
+    for case, build, expect, keep in _corpus_kernel_cases():
         for (store, peak), want in zip(((torch.float32, f32_peak),
                                         (torch.float64, f64_peak)), expect):
+            if want is None:
+                continue
             dname = str(store).replace("torch.", "")
             args = model_solver_space_inputs(
                 build(np.float32 if store == torch.float32 else np.float64))
+            if keep is not None:
+                args = [t[:keep].contiguous() for t in args]
             A, vec = args[0], args[1:]
             if case.startswith("qs_"):
                 check(int((vec[1] != 0).sum()) > 0,
@@ -2649,8 +2795,8 @@ def alg_kernel_inputs(case, dtype):
 
 def alg_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
     """The dense kernel at the algorithms' new shapes against its plain
-    version: FWPH's hull QP (1000, 121, 136), A in shared memory, f32 and
-    f64; aircondB's bundles (10, 1552, 1600), A in global memory, f32."""
+    version: FWPH's hull QP (1000, 121, 136), A resident, f32 and f64;
+    aircondB's bundles (10, 1552, 1600), A streamed, f32."""
     import torch
     rows = {}
     for case, shape, expect in ALG_KERNEL_CASES:
@@ -2985,8 +3131,12 @@ def corpus_phase():
     for ln in lines:
         for r in ln["launches"]:
             launched[(r["form"], r["M"], r["N"], r["dtype"])] += r["launches"]
+    acopf3 = subs["corpus_acopf3"]
     out = {"phase": "corpus", "s": time.time() - t0,
            "sub_run_s": {k: v["s"] for k, v in subs.items()},
+           "cluster_launches": {"corpus_acopf3": sum(cluster_launches(
+               ln["launches"]) for ln in (acopf3, acopf3["ef"],
+                                          acopf3["grid_5bus_22"]))},
            "launches_by_form_shape_dtype": [
                {"form": k[0], "M": k[1], "N": k[2], "dtype": k[3],
                 "launches": n} for k, n in sorted(launched.items())]}
@@ -3327,6 +3477,8 @@ def algorithms_phase(names=ALG_CHILD, phase="algorithms"):
             launched[(r["form"], r["M"], r["N"], r["dtype"])] += r["launches"]
     out = {"phase": phase, "s": time.time() - t0,
            "sub_run_s": {k: v["wall_s"] for k, v in lines.items()},
+           "cluster_launches": {k: cluster_launches(v["launches"])
+                                for k, v in lines.items()},
            "launches_by_form_shape_dtype": [
                {"form": k[0], "M": k[1], "N": k[2], "dtype": k[3],
                 "launches": n} for k, n in sorted(launched.items())]}
@@ -3530,12 +3682,22 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
         check(alg_launched[("dense", shape[1], shape[2], "float32")] > 0,
               f"the dense form at {case}'s {shape} launched no time on "
               "the algorithms path")
+    # these paths run the cluster kernel: each sub-run's count, zeroed
+    # just before it ran
+    through = {"alg_fwph": alg["cluster_launches"]["alg_fwph"],
+               "alg_bundles": alg["cluster_launches"]["alg_bundles"],
+               "corpus_acopf3":
+                   corpus["cluster_launches"]["corpus_acopf3"],
+               "uc_fallback": ucf["cluster_launches"]}
+    for path, n in through.items():
+        check(n > 0, f"{path} launched the cluster kernel no time")
     emit({"phase": "second_process_done", "s": second["child"]["s"],
           "waited_s": second["child"]["waited_s"],
           "total_s": time.time() - t_all})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "share_of_bound", "blocks_per_sm", "waves")
+            "share_of_bound", "kernel", "cluster", "blocks_per_sm",
+            "active_clusters", "waves")
     # launches: the dense form's on the slice phase (path of the dense
     # prep), its bf16 storage's on the bf16x phase, the shared and split
     # forms' on the split phase, the shared form at UC's (1, 174, 114)
@@ -3566,7 +3728,7 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
             "shape": [f32["S"], f32["M"], f32["N"]],
             "variant_source": f32["variant"]["source"],
             "share_of_bound": f32["share_of_bound"],
-            "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"],
+            **{k: f32[k] for k in CLUSTER_KEYS},
             "f64": {k: rows[(form, "float64")][k] for k in keys},
             "bf16": {k: rows[(form, "bfloat16")][k] for k in keys}}
         if form != "dense":
@@ -3610,7 +3772,9 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
     # the dense form's variants that the corpus phase puts on a path,
     # with their launches there (the dense form at the row's M, N)
     rkeys = keys + ("variant", "nonzero_qs", "S", "M", "N")
-    for case, _, _ in _corpus_kernel_cases():
+    for case, _, expect, _ in _corpus_kernel_cases():
+        if expect[0] is None:
+            continue
         f32, f64 = rows[(case, "float32")], rows[(case, "float64")]
         n32, n64 = (corpus["launched"][("dense", f32["M"], f32["N"], d)]
                     for d in ("float32", "float64"))
@@ -3628,9 +3792,14 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
             "shape": [f32["S"], f32["M"], f32["N"]],
             "variant_source": f32["variant"]["source"],
             "share_of_bound": f32["share_of_bound"],
-            "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"],
+            **{k: f32[k] for k in CLUSTER_KEYS},
             "nonzero_qs": f32["nonzero_qs"],
             "f64": {**{k: f64[k] for k in rkeys}, "launches": n64}}
+        certify = rows.get((case + "_certify", "float64"))
+        if certify is not None:
+            # the f64 certify's re-solve at S'=4 (its launches are the
+            # f64 ones above: the path's counts are by (M, N))
+            entry["f64_certify"] = {k: certify[k] for k in rkeys}
         check(n32 > 0, f"the dense form at {case}'s (M, N) = "
               f"({f32['M']}, {f32['N']}) launched no time in f32 on the "
               "corpus path")
@@ -3653,7 +3822,7 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
             "form": "dense", "dtype": "float32", "shape": list(shape),
             "variant_source": f32["variant"]["source"],
             "share_of_bound": f32["share_of_bound"],
-            "blocks_per_sm": f32["blocks_per_sm"], "waves": f32["waves"]}
+            **{k: f32[k] for k in CLUSTER_KEYS}}
         f64 = rows.get((case, "float64"))
         if f64 is not None:
             entry["f64"] = {**{k: f64[k] for k in keys + ("variant",)},
@@ -3662,6 +3831,15 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
         check(n32 > 0, f"the dense form at {case}'s {shape} launched no "
               "time in f32 on the algorithms path")
         kernels.append(entry)
+    # the cluster kernel's launches on the paths that must run it, on the
+    # rows of their shapes
+    for e in kernels:
+        path = {"pdhg_chunk_shared_uc": "uc_fallback",
+                "pdhg_chunk_qs_ieee14": "corpus_acopf3",
+                "pdhg_chunk_hull_qp_fwph": "alg_fwph",
+                "pdhg_chunk_bundles_aircondB": "alg_bundles"}.get(e["name"])
+        if path is not None:
+            e["cluster_kernel_launches"] = {path: through[path]}
     return {"kernels": kernels}
 
 

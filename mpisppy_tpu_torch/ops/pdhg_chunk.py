@@ -29,20 +29,26 @@ bfloat16; the vectors and outputs are float32 or float64, and a
 bfloat16 A goes with float32 vectors (hot_dtype="bf16x": bf16 storage,
 f32 arithmetic).
 
-`pick_variant` chooses the kernel's tile shape and where it reads A
-from (registers, shared or global memory) from (M, N, dtype), and
-`pick_route` whether a solve's chunks go to the kernel at all: a shared
-or split operator too large for a tile held in registers or shared
-memory takes the solver's matmul route instead (`ops/pdhg.py`), since
-the kernel's global-memory source would re-read the shared matrix once
-per block per step.  Both are plain Python, so the CPU tests reach
-them.
+The kernel has two parts in one library: a tiled kernel that holds a
+64 x 128 tile of A in registers (farmer's shapes), and a cluster kernel
+for every larger shape, one scenario per thread-block cluster, with A
+resident in its blocks' shared memory or streamed from device memory
+once a step.  `pick_variant` chooses between them, and the cluster
+size, from (S, M, N, dtype) and the card's occupancy; `pick_route`
+whether a solve's chunks go to the kernel at all: a shared or split
+operator that one block cannot hold beside its state takes the
+solver's matmul route instead (`ops/pdhg.py`), where a matrix product
+reuses it across scenarios.  Both are plain Python, so the CPU tests
+reach them (with tables of the card's occupancy readings standing in
+for its query).
 
-`launches` counts kernel launches (never plain-version calls) and
-`launch_shapes` the same by (form, S, M, N, dtype of A), so a run can
-show that its solves went through the kernel, in which forms and with
-which shapes (`launches_by` sums them by form or dtype).  Both are
-bumped under a lock: the wheel's spoke threads launch concurrently.
+`launches` counts kernel launches (never plain-version calls),
+`launch_shapes` the same by (form, S, M, N, dtype of A) and
+`variant_launches` by those and the source of A and cluster size, so a
+run can show that its solves went through the kernel, in which forms,
+with which shapes and through which of its two kernels (`launches_by`
+sums them by form or dtype).  All are bumped under a lock: the wheel's
+spoke threads launch concurrently.
 """
 
 from __future__ import annotations
@@ -66,6 +72,10 @@ from ..ir import SparseSplitA, SplitA
 launches = 0
 #: the same launches by (form, S, M, N, dtype name of A)
 launch_shapes = collections.Counter()
+#: the same launches by (form, S, M, N, dtype name of A, source of A,
+#: cluster size): which kernel (the tiled one for "registers", the
+#: cluster one otherwise) each went through
+variant_launches = collections.Counter()
 # the wheel's threads mode launches from several host threads at once;
 # a bare `+= 1` can lose counts there
 _COUNT_LOCK = threading.Lock()
@@ -77,29 +87,64 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIB = None
 _LIB_LOCK = threading.Lock()
 _SMEM_OPTIN = None
+_SMS = None
 # (dtype of A, dtype of the vectors) -> C entry point
 _ENTRY = {(torch.float32, torch.float32): "pdhg_chunk_f32",
           (torch.float64, torch.float64): "pdhg_chunk_f64",
           (torch.bfloat16, torch.float32): "pdhg_chunk_bf16"}
 _KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-_SOURCES = ("registers", "shared", "global")
+#: where the kernel holds A (csrc `Src`): the tiled kernel's register
+#: tile, or the cluster kernel's band, resident in shared memory or
+#: streamed from device memory once a pass
+SOURCES = ("registers", "resident", "streamed")
 #: operator forms the kernel takes (csrc `Form`)
 FORMS = ("dense", "shared", "split")
 
 #: per-block shared memory an H100 kernel may opt in to (bytes)
 H100_SMEM_OPTIN = 232448
+#: the cluster kernel's threads a block (csrc kClusterThreads) and
+#: largest cluster (csrc kMaxCluster)
+CLUSTER_THREADS = 256
+MAX_CLUSTER = 16
+#: a streamed stage holds up to this many bytes of whole rows (at least
+#: one, at most STAGE_ROWS: csrc kStageRows), in a ring of STAGES stages
+#: (csrc kStages): a pass costs 3-4 us a stage for 1 to 7 rows (NVIDIA
+#: H100 80GB HBM3, aircondB's shape, tests/cluster_kernel_witness.py),
+#: so the stages are as large as two blocks an SM allow, and one in
+#: flight beside the one consumed hides the copy (rings of 3 or 4
+#: stages of fewer rows were slower there)
+STAGE_BYTES = 45 * 1024
+STAGE_ROWS = 8
+STAGES = 2
+#: a cluster gives each block at least this many rows (one a warp)
+MIN_BAND_ROWS = 8
+#: what a step of a cluster of more than one block costs beyond its
+#: band (two cluster barriers, the x~ gather, the peers' sums), in band
+#: rows: fitted on an NVIDIA H100 80GB HBM3 (700 W) to the cluster
+#: kernel's times over C = 1..16 (tests/cluster_kernel_witness.py; fits
+#: of 33 to 97 rows across its shapes)
+CLUSTER_STEP_ROWS = 64
+
+
+def _r16(b):
+    return -(-b // 16) * 16
 
 
 @dataclasses.dataclass(frozen=True)
 class Variant:
-    """One instantiation of the kernel: warp w owns `rows_per_thread`
-    consecutive rows, lane l owns `vectors_per_lane` groups of 4
-    consecutive columns; A is held in registers (one tile covers the
-    whole matrix) or re-read per step from shared or global memory."""
-    rows_per_thread: int
-    vectors_per_lane: int
-    warps: int
+    """One launch of the kernel.  source "registers": the tiled kernel,
+    one block per scenario, warp w owning `rows_per_thread` consecutive
+    rows and lane l `vectors_per_lane` groups of 4 consecutive columns of
+    a tile held in registers.  "resident" / "streamed": the cluster
+    kernel, one scenario per cluster of `cluster` blocks, each block's
+    band of rows held in its shared memory or streamed through a ring
+    of STAGES stages of `stage_rows` rows."""
     source: str
+    cluster: int = 1
+    stage_rows: int = 0
+    rows_per_thread: int = 8
+    vectors_per_lane: int = 1
+    warps: int = 8
 
     @property
     def tile_rows(self):
@@ -111,27 +156,39 @@ class Variant:
 
     def smem_bytes(self, M, N, compute_bytes, storage_bytes,
                    form="dense"):
-        """Dynamic shared memory of one block (csrc `smem_bytes`): the
-        state vectors and the (warps, N) reduction buffer, plus A itself
-        when it is staged in shared memory, or the split form's
-        per-thread delta patch beside a register tile."""
-        mp = -(-M // self.tile_rows) * self.tile_rows
-        np_ = -(-N // self.tile_cols) * self.tile_cols
-        b = ((7 + self.warps) * np_ + 4 * mp) * compute_bytes
-        if self.source == "shared":
-            b += M * N * storage_bytes
-        elif self.source == "registers" and form == "split":
-            b += (32 * self.warps * self.rows_per_thread
-                  * self.vectors_per_lane * 4 * compute_bytes)
+        """Dynamic shared memory of one block (csrc `smem_bytes` and
+        `cluster_layout`).  Registers: the state over the padded tile,
+        the (warps, N) reduction buffer, and the split form's per-thread
+        delta patch.  Cluster: the streamed source's ring, x~ (N), the
+        partial A^T y (max(N, threads)), the column slice's six vectors,
+        the band's four, the streamed dot's (8, STAGE_ROWS) partials,
+        and the resident source's band of A."""
+        cb, sb = compute_bytes, storage_bytes
+        if self.source == "registers":
+            mp = -(-M // self.tile_rows) * self.tile_rows
+            np_ = -(-N // self.tile_cols) * self.tile_cols
+            b = ((7 + self.warps) * np_ + 4 * mp) * cb
+            if form == "split":
+                b += (32 * self.warps * self.rows_per_thread
+                      * self.vectors_per_lane * 4 * cb)
+            return b
+        C = self.cluster
+        nc, mb = -(-N // C), -(-M // C)
+        b = 0
+        if self.source == "streamed":
+            b += STAGES * _r16(self.stage_rows * N * sb + 16)
+        red = 8 * STAGE_ROWS if self.source == "streamed" else 0
+        b += _r16((N + max(N, CLUSTER_THREADS) + 6 * nc + 4 * mb + red)
+                  * cb)
+        if self.source == "resident":
+            b += _r16(mb * N * sb)
         return b
 
 
-# (rows per thread, column vectors per lane, warps) of the tile held in
-# registers (64 x 128: farmer's M=61, N=120 at crops_multiplier=10) and
-# of the tile that loops over larger shapes; csrc PDHG_F32_VARIANTS /
-# PDHG_F64_VARIANTS instantiate exactly these
-_REGISTER_TILE = (8, 1, 8)
-_LOOP_TILE = (4, 1, 8)
+#: the tile held in registers (64 x 128: farmer's M=61, N=120 at
+#: crops_multiplier=10); csrc PDHG_F32_VARIANTS / PDHG_F64_VARIANTS
+#: instantiate exactly this one
+REGISTER_TILE = Variant("registers")
 
 
 def compute_dtype(dtype):
@@ -139,26 +196,77 @@ def compute_dtype(dtype):
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
+def _streamed(C, M, N, cb, sb, smem_optin):
+    """The streamed variant at cluster size C: STAGES stages of whole
+    rows up to STAGE_BYTES (1 to STAGE_ROWS rows), fewer rows while a
+    block would exceed `smem_optin`; None when stages of one row do not
+    fit."""
+    for rows in range(max(1, min(STAGE_ROWS, STAGE_BYTES // (N * sb))),
+                      0, -1):
+        v = Variant("streamed", C, rows)
+        if v.smem_bytes(M, N, cb, sb) <= smem_optin:
+            return v
+    return None
+
+
 @functools.lru_cache(maxsize=None)
-def pick_variant(M, N, dtype, smem_optin=H100_SMEM_OPTIN) -> Variant:
-    """The kernel variant for an (S, M, N) A stored in `dtype`: the
-    register tile when it covers M x N; else the looping tile with A in
-    shared memory when it fits `smem_optin` bytes beside the state, else
-    with A in global memory.  Raises ValueError when even the state
-    vectors exceed the shared-memory limit."""
+def pick_variant(S, M, N, dtype, smem_optin, n_sm, occupancy_of) -> Variant:
+    """The kernel variant for S scenarios of an (M, N) A stored in
+    `dtype` (the same for every form, so that the forms stay bit-equal):
+
+    * the register tile when it covers M x N;
+    * else the cluster kernel, A resident in its blocks' shared memory
+      where a band fits beside the state at some cluster size, else
+      streamed.  Cluster sizes run from 1 to min(MAX_CLUSTER, M //
+      MIN_BAND_ROWS).  The smallest that fits where S clusters of it
+      fill the card (S C >= n_sm) with two blocks or more an SM: there
+      each block's step is bound by its own latency, which cluster
+      traffic only lengthens.  Else the size that minimises rounds x
+      (rows a block + CLUSTER_STEP_ROWS for C > 1), rounds = ceil(S /
+      clusters held at once), ties to the smaller; the occupancy comes
+      from `occupancy_of(variant, M, N, dtype)` -> (blocks per SM,
+      clusters held at once): the card's query (`card_variant`), or a
+      table of its readings in the CPU tests.
+
+    Raises ValueError when no variant's state fits `smem_optin` bytes a
+    block."""
     if dtype not in _KIND:
         raise TypeError(f"pdhg_chunk: no kernel for A stored in {dtype}")
     cb, sb = compute_dtype(dtype).itemsize, dtype.itemsize
-    v = Variant(*_REGISTER_TILE, "registers")
-    if M > v.tile_rows or N > v.tile_cols:
-        v = Variant(*_LOOP_TILE, "shared")
-        if v.smem_bytes(M, N, cb, sb) > smem_optin:
-            v = Variant(*_LOOP_TILE, "global")
-    if v.smem_bytes(M, N, cb, sb) > smem_optin:
-        raise ValueError(f"pdhg_chunk cannot launch at M={M}, N={N}: its "
-                         f"state needs {v.smem_bytes(M, N, cb, sb)} bytes "
-                         f"of shared memory, the limit is {smem_optin}")
-    return v
+    if M <= REGISTER_TILE.tile_rows and N <= REGISTER_TILE.tile_cols:
+        need = REGISTER_TILE.smem_bytes(M, N, cb, sb)
+        if need > smem_optin:
+            raise ValueError(f"pdhg_chunk cannot launch at M={M}, N={N}: "
+                             f"its state needs {need} bytes of shared "
+                             f"memory, the limit is {smem_optin}")
+        return REGISTER_TILE
+    sizes = range(1, min(MAX_CLUSTER, max(1, M // MIN_BAND_ROWS)) + 1)
+    pool = [Variant("resident", C) for C in sizes
+            if Variant("resident", C).smem_bytes(M, N, cb, sb) <= smem_optin]
+    if not pool:
+        pool = [v for v in (_streamed(C, M, N, cb, sb, smem_optin)
+                            for C in sizes) if v is not None]
+    if not pool:
+        raise ValueError(f"pdhg_chunk cannot launch at M={M}, N={N}: the "
+                         f"cluster kernel's state needs more than "
+                         f"{smem_optin} bytes of shared memory a block at "
+                         f"every cluster size")
+    best, best_cost = None, None
+    for v in pool:
+        blocks, held = occupancy_of(v, M, N, dtype)
+        if held < 1:
+            continue
+        if best is None and S * v.cluster >= n_sm and blocks >= 2:
+            return v
+        rows = -(-M // v.cluster) + (CLUSTER_STEP_ROWS if v.cluster > 1
+                                     else 0)
+        cost = -(-S // held) * rows
+        if best_cost is None or cost < best_cost:
+            best, best_cost = v, cost
+    if best is None:
+        raise ValueError(f"pdhg_chunk cannot launch at M={M}, N={N}: no "
+                         f"cluster size fits on the card")
+    return best
 
 
 def operator_form(A, S):
@@ -180,25 +288,29 @@ def operator_form(A, S):
 def pick_route(form, M, N, dtype, smem_optin=H100_SMEM_OPTIN):
     """"kernel" or "matmul": where a solve runs the chunks of an
     operator of `form` with M rows and N columns stored in `dtype`.  A
-    dense per-scenario A takes the kernel whenever it can launch (any
-    source of A); its state beyond the shared-memory limit takes the
-    matmul route.  A shared or split A takes the kernel when
-    `pick_variant` holds its tile in registers or shared memory, and
-    the matmul route otherwise: there the kernel would read the shared
-    matrix from device memory once per block per step (S x M x N x
-    bytes a step), where a matrix product reuses it.  A sparse shared
-    block always takes the matmul route (torch's sparse product)."""
+    shape within the register tile takes the kernel.  Beyond it the rule
+    keeps the limits it was set with, on a block's state over 128-column
+    and 32-row padding, (15 Np + 4 Mp) values: a dense per-scenario A
+    takes the kernel while that state fits `smem_optin`, the matmul
+    route beyond; a shared or split A takes the kernel while one block
+    holds the whole matrix beside that state, and the matmul route
+    otherwise, where a matrix product reuses the shared matrix across
+    scenarios.  A sparse shared block always takes the matmul route
+    (torch's sparse product)."""
     if form not in FORMS + ("sparse",):
         raise ValueError(f"pick_route: unknown operator form {form!r}")
     if form == "sparse":
         return "matmul"
-    try:
-        v = pick_variant(M, N, dtype, smem_optin)
-    except ValueError:
-        return "matmul"
-    if form == "dense":
-        return "kernel"
-    return "kernel" if v.source in ("registers", "shared") else "matmul"
+    if dtype not in _KIND:
+        raise TypeError(f"pdhg_chunk: no kernel for A stored in {dtype}")
+    cb, sb = compute_dtype(dtype).itemsize, dtype.itemsize
+    if M <= REGISTER_TILE.tile_rows and N <= REGISTER_TILE.tile_cols:
+        fits = REGISTER_TILE.smem_bytes(M, N, cb, sb) <= smem_optin
+        return "kernel" if fits else "matmul"
+    state = (15 * (-(-N // 128) * 128) + 4 * (-(-M // 32) * 32)) * cb
+    if form != "dense":
+        state += M * N * sb
+    return "kernel" if state <= smem_optin else "matmul"
 
 
 def launches_by(key):
@@ -264,9 +376,9 @@ def load_library():
             for name in _ENTRY.values():
                 fn = getattr(lib, name)
                 fn.argtypes = ([ptr] * 4 + [cint] * 2 + [ptr] * 14
-                               + [cint] * 8 + [ptr])
+                               + [cint] * 10 + [ptr])
                 fn.restype = ctypes.c_int
-            lib.pdhg_chunk_occupancy.argtypes = [ctypes.c_int] * 8
+            lib.pdhg_chunk_occupancy.argtypes = [cint] * 10 + [ptr]
             lib.pdhg_chunk_occupancy.restype = ctypes.c_int
             lib.pdhg_chunk_smem_optin.argtypes = []
             lib.pdhg_chunk_smem_optin.restype = ctypes.c_int
@@ -286,19 +398,44 @@ def smem_optin():
     return _SMEM_OPTIN
 
 
-def occupancy(M, N, dtype, form="dense"):
-    """(variant, resident blocks per SM) of the kernel for an (S, M, N)
-    A of `form` stored in `dtype` on the current card.  Needs the CUDA
-    library."""
-    v = pick_variant(M, N, dtype, smem_optin())
-    got = load_library().pdhg_chunk_occupancy(
+def sm_count():
+    """The current card's SM count."""
+    global _SMS
+    if _SMS is None:
+        _SMS = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    return _SMS
+
+
+def variant_occupancy(v, M, N, dtype, form="dense"):
+    """(blocks per SM, clusters held at once) of variant `v` of `form`
+    at (M, N) in `dtype` on the current card: the CUDA occupancy
+    queries (cudaOccupancyMaxActiveClusters for the cluster kernel; SMs
+    x blocks per SM for the tiled one).  Needs the CUDA library."""
+    out = (ctypes.c_int * 2)()
+    rc = load_library().pdhg_chunk_occupancy(
         _KIND[dtype], FORMS.index(form), v.rows_per_thread,
-        v.vectors_per_lane, v.warps, _SOURCES.index(v.source), int(M),
-        int(N))
-    if got < 0:
+        v.vectors_per_lane, v.warps, SOURCES.index(v.source), int(M),
+        int(N), v.cluster, v.stage_rows, out)
+    if rc != 0:
         raise RuntimeError(f"pdhg_chunk occupancy query failed: CUDA error "
-                           f"{-got}")
-    return v, got
+                           f"{rc} ({v}, M={M}, N={N}, {dtype})")
+    return out[0], out[1]
+
+
+def card_variant(S, M, N, dtype):
+    """pick_variant on the current card: its shared-memory limit, SM
+    count and cluster occupancy."""
+    return pick_variant(S, M, N, dtype, smem_optin(), sm_count(),
+                        variant_occupancy)
+
+
+def occupancy(S, M, N, dtype, form="dense"):
+    """(variant, blocks per SM, clusters held at once) of the kernel
+    for S scenarios of an (M, N) A of `form` stored in `dtype` on the
+    current card.  Needs the CUDA library."""
+    v = card_variant(S, M, N, dtype)
+    return (v, *variant_occupancy(v, M, N, dtype, form))
 
 
 def _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
@@ -436,11 +573,31 @@ REFERENCE = {"dense": fused_chunk_reference,
              "split": fused_chunk_split_reference}
 
 
-def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
+def _check_variant(v, M, N, dtype):
+    """Raise ValueError unless variant `v` can launch at (M, N) in
+    `dtype` on the current card."""
+    if v.source not in SOURCES:
+        raise ValueError(f"fused_chunk: unknown source {v.source!r}")
+    cb, sb = compute_dtype(dtype).itemsize, dtype.itemsize
+    if v.source == "registers":
+        ok = (v == REGISTER_TILE and M <= v.tile_rows
+              and N <= v.tile_cols)
+    else:
+        ok = 1 <= v.cluster <= MAX_CLUSTER and (
+            v.source == "resident" or 1 <= v.stage_rows <= STAGE_ROWS)
+    if not ok or v.smem_bytes(M, N, cb, sb, "split") > smem_optin():
+        raise ValueError(f"fused_chunk: {v} cannot launch at M={M}, "
+                         f"N={N} in {dtype}")
+
+
+def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps,
+                variant=None):
     """Run `n_steps` PDHG iterations for the whole batch (solver-space
     inputs; tau/sigma are per-scenario (S,) step sizes).  A is dense
     (S, M, N), shared (1, M, N) or a SplitA.  Returns (x, y, x_sum,
-    y_sum) in the vectors' dtype."""
+    y_sum) in the vectors' dtype.  `variant` (measurement and tests
+    only) launches that variant instead of `pick_variant`'s, or raises
+    when it cannot launch at these shapes."""
     form = _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps)
     if A.device.type == "cpu":
         return REFERENCE[form](A, cs, qs, lb, ub, rlo, rhi, x, y, tau,
@@ -452,7 +609,11 @@ def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
         raise ValueError(f"fused_chunk: a {form} A of {M} x {N} in "
                          f"{A.dtype} takes the solver's matmul route")
     fn = getattr(load_library(), _ENTRY[(A.dtype, cs.dtype)])
-    v = pick_variant(M, N, A.dtype, smem_optin())
+    if variant is None:
+        v = card_variant(S, M, N, A.dtype)
+    else:
+        _check_variant(variant, M, N, A.dtype)
+        v = variant
     if form == "split":
         ptrs = (A.shared.data_ptr(), A.rows.data_ptr(), A.cols.data_ptr(),
                 A.vals.data_ptr())
@@ -469,14 +630,16 @@ def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
                 tau.data_ptr(), sigma.data_ptr(), xo.data_ptr(),
                 yo.data_ptr(), xso.data_ptr(), yso.data_ptr(), S, M, N,
                 int(n_steps), v.rows_per_thread, v.vectors_per_lane,
-                v.warps, _SOURCES.index(v.source), stream)
+                v.warps, SOURCES.index(v.source), v.cluster, v.stage_rows,
+                stream)
     if rc != 0:
         raise RuntimeError(
             f"pdhg_chunk kernel launch failed: CUDA error {rc} "
             f"({form}, S={S}, M={M}, N={N}, dtype={A.dtype}, {v})")
     global launches
+    dname = str(A.dtype).replace("torch.", "")
     with _COUNT_LOCK:
         launches += 1
-        launch_shapes[(form, S, M, N,
-                       str(A.dtype).replace("torch.", ""))] += 1
+        launch_shapes[(form, S, M, N, dname)] += 1
+        variant_launches[(form, S, M, N, dname, v.source, v.cluster)] += 1
     return xo, yo, xso, yso

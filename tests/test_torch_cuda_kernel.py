@@ -16,9 +16,9 @@ float64 and 2e-4 in float32 and with A stored in bfloat16 (float32
 vectors; the twin casts the same bf16 values up) — the two differ only
 in the summation order inside the matvecs (chip_smoke.py uses the same
 figures at the main path's shapes).  The shapes include the edges of
-the register tiles (M 64/65, N 128/129), the looping variants with A in
-shared and in global memory, and a batch of 3 scenarios that leaves
-most of the card idle.
+the register tiles (M 64/65, N 128/129), the cluster kernel with A
+resident and streamed, and a batch of 3 scenarios that the cluster
+kernel spreads over the card.
 """
 
 import numpy as np
@@ -30,9 +30,9 @@ from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
 from mpisppy_tpu_torch.ops.pdhg import (PDHGSolver, prepare_batch,
                                         prepare_split_native)
-from mpisppy_tpu_torch.ops.pdhg_chunk import (compute_dtype, fused_chunk,
-                                              fused_chunk_reference,
-                                              pick_variant)
+from mpisppy_tpu_torch.ops.pdhg_chunk import (Variant, compute_dtype,
+                                              fused_chunk,
+                                              fused_chunk_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,9 +84,10 @@ def _assert_matches(got, want, dtype):
 def test_kernel_matches_twin(cuda, dtype, shape):
     S, M, N = shape
     args = _instance(S, M, N, 1, dtype, cuda)
-    v = pick_variant(M, N, dtype, pdhg_chunk.smem_optin())
+    v = pdhg_chunk.card_variant(S, M, N, dtype)
     if shape == (2, 200, 200) and dtype == torch.float64:
-        assert v.source == "global"     # 320 KB of A
+        # 320 KB of A: resident across a cluster
+        assert v.source == "resident" and v.cluster >= 2
     if shape == (16, 61, 120):
         assert v.source == "registers"  # the main path's shapes
     before = pdhg_chunk.launches
@@ -104,9 +105,9 @@ def test_kernel_matches_twin(cuda, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.bfloat16])
 def test_occupancy_at_the_main_path_shape(cuda, dtype):
-    v, blocks = pdhg_chunk.occupancy(61, 120, dtype)
+    v, blocks, held = pdhg_chunk.occupancy(1000, 61, 120, dtype)
     assert v.source == "registers"
-    assert blocks >= 1
+    assert blocks >= 1 and held == blocks * pdhg_chunk.sm_count()
     if dtype != torch.float64:
         assert blocks >= 2
 
@@ -217,7 +218,7 @@ def test_shared_and_split_forms_equal_the_dense_kernel(cuda, dtype, shape,
 def test_occupancy_of_the_forms(cuda):
     for form in ("dense", "shared", "split"):
         for dtype in (torch.float32, torch.float64, torch.bfloat16):
-            v, blocks = pdhg_chunk.occupancy(61, 120, dtype, form)
+            v, blocks, _ = pdhg_chunk.occupancy(1000, 61, 120, dtype, form)
             assert v.source == "registers" and blocks >= 1
 
 
@@ -263,8 +264,7 @@ def test_single_straggler_on_a_shared_A_beyond_the_tile(cuda):
     route instead of failing to launch, and agrees with the same solve
     on the CPU."""
     M, N = 1500, 3000
-    with pytest.raises(ValueError, match="cannot launch"):
-        pick_variant(M, N, torch.float64)
+    assert pdhg_chunk.pick_route("shared", M, N, torch.float64) == "matmul"
     rng = np.random.default_rng(11)
     A = torch.from_numpy(rng.standard_normal((1, M, N)) / np.sqrt(N))
     rlo = torch.from_numpy(-rng.random((1, M)) - 1.0)
@@ -293,14 +293,15 @@ def test_single_straggler_on_a_shared_A_beyond_the_tile(cuda):
                                    torch.bfloat16])
 def test_shared_form_at_the_uc_fallback_shape(cuda, dtype):
     """UC at bench.py's fallback size (fleet_multiplier=2, H=6) is one
-    shared (1, 174, 114) matrix: the looping tile with A staged in
-    shared memory, against its plain version and the dense kernel."""
+    shared (1, 174, 114) matrix: the cluster kernel with A resident in
+    one block's shared memory, against its plain version and the dense
+    kernel."""
     from mpisppy_tpu_torch.models import uc
     S = 250
     b = uc.build_batch(S, H=6, fleet_multiplier=2, device="cpu")
     assert tuple(b.A.shape) == (1, 174, 114)
-    v = pick_variant(174, 114, dtype)
-    assert v.source == "shared"
+    v = pdhg_chunk.card_variant(S, 174, 114, dtype)
+    assert v.source == "resident"
     args = _instance(S, 174, 114, 12, dtype, cuda)
     A = prepare_batch(b.A, b.row_lo, b.row_hi).A.to(cuda, dtype)
     before = pdhg_chunk.launch_shapes[("shared", S, 174, 114,
@@ -509,3 +510,82 @@ def test_farmer_wheel_with_telemetry_on_card(cuda, tmp_path):
     snap = json.loads((tmp_path / "metrics.jsonl").read_text()
                       .splitlines()[-1])
     assert snap["histograms"]["ph.phase.solve_seconds"]["count"] > 0
+
+
+# the cluster kernel's rows: (S, M, N, A's storage dtypes, source), the
+# shapes that reach it on the paths (aircondB's bundles, acopf3 ieee14
+# and its f64 certify at S'=4, FWPH's hull QP, sizes, UC's fallback,
+# usar)
+CLUSTER_ROWS = [
+    ((10, 1552, 1600), (torch.float32,), "streamed"),
+    ((12, 151, 268), (torch.float32, torch.float64), "resident"),
+    ((4, 151, 268), (torch.float64,), "resident"),
+    ((1000, 121, 136), (torch.float32, torch.float64), "resident"),
+    ((3, 62, 150), (torch.float32, torch.float64), "resident"),
+    ((250, 174, 114), (torch.float32, torch.float64, torch.bfloat16),
+     "resident"),
+    ((3, 251, 314), (torch.float32, torch.float64), "resident")]
+
+
+@pytest.mark.parametrize("shape, dtypes, source", CLUSTER_ROWS,
+                         ids=["aircondB", "ieee14", "ieee14_certify",
+                              "hull_qp", "sizes", "uc_fallback", "usar"])
+def test_cluster_kernel_rows_match_twin(cuda, shape, dtypes, source):
+    S, M, N = shape
+    for dtype in dtypes:
+        args = _instance(S, M, N, 21, dtype, cuda)
+        # step sizes 0.9 / ||A||_2, as the solver's prep sets them: the
+        # fixed ones of _instance make the larger shapes diverge
+        norm = torch.linalg.matrix_norm(args[0].double(), ord=2)
+        args[9] = (0.9 / norm).to(args[9].dtype)
+        args[10] = args[9].clone()
+        v = pdhg_chunk.card_variant(S, M, N, dtype)
+        assert v.source == source
+        key = ("dense", S, M, N, str(dtype).replace("torch.", ""),
+               v.source, v.cluster)
+        before = pdhg_chunk.variant_launches[key]
+        got = fused_chunk(*args, 40)
+        torch.cuda.synchronize()
+        assert pdhg_chunk.variant_launches[key] == before + 1
+        _assert_matches(got, fused_chunk_reference(*args, 40), dtype)
+        del args, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 67, 150), (5, 131, 37)])
+@pytest.mark.parametrize("variant", [
+    Variant("resident", 1), Variant("resident", 3), Variant("resident", 16),
+    Variant("streamed", 1, 1), Variant("streamed", 3, 3),
+    Variant("streamed", 16, 2)], ids=lambda v: f"{v.source}{v.cluster}")
+def test_cluster_kernel_forms_equal_the_dense_kernel(cuda, dtype, shape,
+                                                     variant):
+    """Each source of the cluster kernel at three cluster sizes: the
+    shared and split forms equal the dense kernel on the assembled
+    matrices bit for bit, and each matches its plain version."""
+    S, M, N = shape
+    args = _instance(S, M, N, 22, dtype, cuda)
+    rng = np.random.default_rng(23)
+    for form in ("shared", "split"):
+        if form == "shared":
+            A = args[0][:1].contiguous()
+            dense = A.expand(S, M, N).contiguous()
+        else:
+            A = _split_of(args[0], rng, 2 * M)
+            dense = A.to_dense().contiguous()
+        for n_steps in (0, 1, 7):
+            got = fused_chunk(A, *args[1:], n_steps, variant=variant)
+            want = fused_chunk(dense, *args[1:], n_steps, variant=variant)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            _assert_matches(got, pdhg_chunk.REFERENCE[form](
+                A, *args[1:], n_steps), dtype)
+
+
+def test_a_variant_that_cannot_launch_is_refused(cuda):
+    args = _instance(3, 300, 300, 24, torch.float32, cuda)
+    with pytest.raises(ValueError, match="cannot launch"):
+        fused_chunk(*args, 3, variant=Variant("resident", 1))  # 360 KB
+    with pytest.raises(ValueError, match="cannot launch"):
+        fused_chunk(*args, 3, variant=Variant("registers"))

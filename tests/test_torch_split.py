@@ -43,6 +43,8 @@ from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
 from mpisppy_tpu_torch.ops.pdhg_chunk import pick_route
 from mpisppy_tpu_torch.opt.ph import PH
 
+import h100_occupancy as card
+
 F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
 
 
@@ -269,24 +271,38 @@ def test_a_shared_operator_keeps_its_form_at_any_S(S):
     assert form == "shared"
     assert pick_route(form, 6001, 12000, F64) == "matmul"
     with pytest.raises(ValueError, match="cannot launch"):
-        pdhg_chunk.pick_variant(6001, 12000, F64)
+        card.pick(S, 6001, 12000, F64)
     dense = torch.zeros((), dtype=F64).expand(2, 6001, 12000)
     assert pdhg_chunk.operator_form(dense, 2) == "dense"
     assert pick_route("dense", 6001, 12000, F64) == "matmul"
 
 
 def test_route_rule_follows_the_variant():
+    """A shared or split A takes the kernel exactly where the register
+    tile covers it or one block holds the whole matrix beside a state of
+    (15 Np + 4 Mp) values (the rule's limits); there the variant is the
+    register tile or the cluster kernel with the matrix resident, which
+    one block alone could hold."""
+    optin = pdhg_chunk.H100_SMEM_OPTIN
     for M, N in ((61, 120), (65, 129), (121, 240), (200, 200), (9, 300)):
         for dt in (F32, F64, BF16):
-            src = pdhg_chunk.pick_variant(M, N, dt).source
-            want = "kernel" if src in ("registers", "shared") else "matmul"
+            cb, sb = pdhg_chunk.compute_dtype(dt).itemsize, dt.itemsize
+            state = (15 * (-(-N // 128) * 128) + 4 * (-(-M // 32) * 32)) \
+                * cb + M * N * sb
+            reg = M <= 64 and N <= 128
+            want = "kernel" if reg or state <= optin else "matmul"
             assert pick_route("split", M, N, dt) == want
             assert pick_route("shared", M, N, dt) == want
+            if want == "kernel":
+                v = card.pick(1000, M, N, dt)
+                assert v.source == ("registers" if reg else "resident")
+                assert reg or pdhg_chunk.Variant("resident", 1).smem_bytes(
+                    M, N, cb, sb) <= optin
     with pytest.raises(ValueError, match="unknown operator form"):
         pick_route("bogus", 61, 120, F32)
     # the split form's register tile keeps a delta patch of 32 values a
     # thread in shared memory beside the state
-    v = pdhg_chunk.pick_variant(61, 120, F32)
+    v = card.pick(1000, 61, 120, F32)
     assert v.smem_bytes(61, 120, 4, 4, "split") \
         - v.smem_bytes(61, 120, 4, 4) == 256 * 32 * 4
 
