@@ -49,7 +49,8 @@ Phases, one JSON line each (any failure exits non-zero):
               shared forms must both launch), a profiled window
   7. true_size the true-size instance, crops_multiplier=1000 (M=6001,
               N=12000), f32, split-native, S cut from 1000 to TRUE_S:
-              Iter0, 2 PH iterations, one xhat and one Lagrangian bound
+              Iter0, TRUE_PH_ITERS PH iterations, one xhat and one
+              Lagrangian bound
               on the matmul route, Iter0's certified-feasible mass; peak
               device memory under 20 GB, the per-step time of the
               matmul route against its bound, a profiled PH iteration,
@@ -165,13 +166,51 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
               the two new shapes against its plain version: the hull QP
               (f32, f64, A resident) and the bundles (f32, A streamed);
               alg_fwph and alg_bundles must launch the cluster kernel.
-The corpus phase, then the uc fallback pass, sslp, the golden, the
-compact phase and the algorithms sub-runs of ALG_CHILD (line
-`algorithms`) run in a second process on the same card (this script
-with SECOND_PROCESS_FLAG), started when true_size ends, beside the uc,
-wheel and driver phases and the algorithms sub-runs of ALG_MAIN (line
-`algorithms_main`) of the main process; its lines are copied into this
-output when it ends, the last one `child` with its wall.
+ 15. soc      acopf3's Jabr SOC relaxation on IEEE 14-bus (2,2), f64:
+              soc_refine's rounds (walls, iterations, cuts, objective
+              rising, the last violation below a tenth of the first),
+              the refined EF by the port's f64 EF (dead lines carry no
+              flow and no lifted product), PH (rho 50, SOC_PH_OPTS) on
+              the refined batch: Iter0 feasible, E[obj] after each
+              iteration and against the EF's objective, its bounds
+              around it where they certify, else the bracket reported
+              vacuous (SOC_CUTS lists the rounds, iterations and solver
+              caps cut and why).  The kernel
+              phase holds the dense form at the SOC shape (4, 814, 600)
+              against its plain version (the cluster kernel, streamed)
+ 16. cross_scen wheel_row's batch with cross-scenario cut capacity, a PH
+              hub with CrossScenarioExtension, the cut spoke and an
+              xhat-shuffle spoke, interleaved: cuts installed, the
+              seeded cut's trivial bound at the wait-and-see value
+              (HiGHS, scenario by scenario), the bounds around the
+              HiGHS EF optimum
+ 17. wheel_multiproc wheel_row's dicts in multiproc mode: its spokes as
+              child processes on the card over the native seqlock's
+              window files (telemetry on: each child's trace row merged
+              into trace.json), children on cuda, bounds around the
+              farmer-100 optimum, seconds per superstep over the whole
+              spin beside wheel_row's threads mode (the same span) and
+              over the hub's loop alone, the children's kernel launches;
+              then a supervised run whose Lagrangian child chaos kills
+              (os._exit) at its third step: restarted once, pruned, the
+              hub's outer bound still valid
+ 18. checkpoint farmer PH in f64 at wheel_row's size: two uninterrupted
+              runs (they must agree to 1e-9), one crashed by chaos after
+              iteration 4's checkpoint, its resume (W, x̄ and conv equal
+              the uninterrupted run's to 1e-9)
+The kernel phase also holds the kernel at the new paths' shapes
+against its plain version (NEW_PATH_KERNEL_CASES): wheel_row's split
+prep (100, 7, 12), the cross-scenario hub's augmented batch (100, 47,
+13), the SOC batch.
+The corpus phase, the algorithms sub-runs of ALG_CHILD (line
+`algorithms`), soc and cross_scen run in a second process on the same
+card (this script with SECOND_PROCESS_FLAG), started when true_size
+ends, beside the uc, wheel and driver phases, the algorithms sub-runs
+of ALG_MAIN (line `algorithms_main`), wheel_multiproc, checkpoint,
+compact, the uc fallback pass, sslp and the golden of the main process
+(the last four ran in the second process until soc and
+cross_scen joined it); its lines are copied into this output when it ends, the
+last one `child` with its wall.
 Then the kernels line (each entry with its launches in `wheel_split`,
 in the driver phase's cylinders run and in the compact phase, and the
 dense and split forms with their compacted-slab run; the corpus rows
@@ -209,9 +248,12 @@ BF16X_PH_ITERS = 2
 # 234-273 s at S=125 (the cut until the driver phase needed the time)
 # and 168.8 s at S=64 (the cut until the corpus phase needed the time;
 # the phase's time is the card's, so it does not shrink on a faster
-# host as the host-bound phases do).  crops_multiplier, pdhg_eps and
-# pdhg_max_iters stay the bench's.
-TRUE_S, TRUE_CM, TRUE_PH_ITERS = 32, 1000, 2
+# host as the host-bound phases do).  At S=16 Iter0 took as long as at
+# S=32 (80.0 s, its f64 certify 63.5 s), so S stays 32.
+# crops_multiplier, pdhg_eps and pdhg_max_iters stay the bench's.  One
+# PH iteration (2 until the soc, cross_scen, wheel_multiproc and
+# checkpoint phases needed the time: each took ~18 s)
+TRUE_S, TRUE_CM, TRUE_PH_ITERS = 32, 1000, 1
 # the bench's options (bench.py:1252-1294) for farmer, with the dense
 # per-scenario prep of its accelerator row at the CPU-fallback size
 # (cm=10); SPLIT_OPTS leave out no_split_prep, so farmer's declared
@@ -252,7 +294,8 @@ UC_S, UC_PH_ITERS, UC_SWEEPS = 32, 2, 1
 # floor whatever this cap (3,500 consensus chunks, 71.6 s in all at
 # 40,000 and 72.4 s at 20,000 on an NVIDIA H100 80GB HBM3 at 700 W, so
 # a lower cap gives no time back); the bound is valid at any iterate,
-# only looser at a lower cap
+# only looser at a lower cap.  The certify is left out (uc_ef_bound)
+# since the soc, cross_scen, wheel_multiproc and checkpoint phases needed the time
 UC_EF_ITERS = 40000
 UC_OPTS = {"defaultPHrho": 50.0, "convthresh": 0.0, "pdhg_eps": 1e-4,
            "superstep_eps": 1e-4, "lagrangian_eps": 1e-4,
@@ -279,12 +322,13 @@ WHEEL_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 40, "convthresh": 0.0,
 WHEEL_HUB_OPTS = {"rel_gap": 1e-4, "abs_gap": 1.0}
 # the heavier wheel through config + vanilla, as
 # examples/farmer_cylinders.py builds it, with the split phase's solver
-# options and PHIterLimit cut to 3 (20 until the driver phase, 8 until
+# options and PHIterLimit cut to 2 (20 until the driver phase, 8 until
 # the corpus phase needed the time, 5 until the script ran over its
-# limit on a slower host)
+# limit on a slower host, 3 until the soc, cross_scen, wheel_multiproc
+# and checkpoint phases needed the time)
 WHEEL_SPLIT_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
                     "--lagrangian", "--xhatshuffle", "--rel-gap", "0.01"]
-WHEEL_SPLIT_PH_ITERS = 3
+WHEEL_SPLIT_PH_ITERS = 2
 # the driver phase: examples/farmer_cylinders.py's command line with its
 # extension flags, through the port's amalgamator at the split cell's
 # size (S=1000, cm=10, f32, the split phase's solver options, which no
@@ -297,7 +341,9 @@ DRIVER_ARGV = ["--num-scens", str(S), "--crops-multiplier", str(CM),
                "--lagrangian", "--xhatshuffle", "--fixer",
                "--farmer-with-integers", "--use-norm-rho-updater",
                "--wtracker", "--primal-dual-converger", "--rel-gap", "0.01"]
-DRIVER_PH_ITERS = 6
+# 6 until the soc, cross_scen, wheel_multiproc and checkpoint phases
+# needed the time
+DRIVER_PH_ITERS = 4
 DRIVER_HUB_ITERS = 3
 DRIVER_GAPPER = {0: 1e-4, 2: 1e-5}
 DRIVER_EF_ARGV = ["--num-scens", str(WHEEL_S), "--EF", "--EF-solver-eps",
@@ -457,17 +503,90 @@ ALG_KERNEL_CASES = (("hull_qp_fwph", (S, 121, 136),
                      ("resident", "resident")),
                     ("bundles_aircondB", (10, 1552, 1600),
                      ("streamed", None)))
+# acopf3's Jabr SOC relaxation: refine the IEEE 14-bus case
+# on the (2,2) outage tree (the full width the JAX package supports)
+# with 8 cut slots a (stage, line), each round one consensus EF solve
+# warm-started from the last (certify=False); the refined EF by the
+# port's own f64 EF, warm-started from the last round; then PH as
+# tests/test_acopf3_soc.py runs it (rho 50) on the refined batch, f64.
+# SOC_CUTS lists what is cut and why (NVIDIA H100 80GB HBM3, 700 W):
+# the refine's rounds run at 8,000 iterations (~4 s a round), and round
+# 6 is the first whose violation (0.0061) is below a tenth of round 0's
+# (0.307), so 7 rounds are run; PH's E[obj] is within 6.0e-4 of the EF's
+# objective after Iter0 and 2.6e-4 after 2 iterations (line `soc`,
+# `ph_eobj_by_iteration`; 10 iterations took 35 s), so 2 are run.  PH's
+# Iter0 at the JAX test's eps 1e-6 (100,000 iterations) fails, and at
+# 1e-4 no bound certifies, in both packages on this batch
+# (tests/soc_ph_witness.py): the phase runs PH at 1e-4 and says that its
+# bracket is vacuous
+SOC_BF, SOC_CASE, SOC_SLOTS = (2, 2), "ieee14", 8
+SOC_ROUNDS = 7
+SOC_REFINE_OPTS = {"pdhg_eps": 1e-5, "pdhg_max_iters": 8000}
+SOC_EF_OPTS = {"pdhg_eps": 1e-5, "pdhg_max_iters": 20000}
+SOC_PH_OPTS = {"defaultPHrho": 50.0, "PHIterLimit": 2, "convthresh": 1e-6,
+               "pdhg_eps": 1e-4, "pdhg_max_iters": 20000}
+SOC_EOBJ_TOL_REL = 1e-3
+SOC_CUTS = {"rounds": {"JAX test (synthetic grid)": 6, "here": SOC_ROUNDS},
+            "refine": {"soc_refine default": {"pdhg_eps": 1e-6,
+                                              "pdhg_max_iters": 60000},
+                       "here": SOC_REFINE_OPTS},
+            "ef": {"JAX test": {"pdhg_eps": 1e-6, "pdhg_max_iters": 100000,
+                                "certify": True},
+                   "here": dict(SOC_EF_OPTS, certify=False)},
+            "ph": {"JAX test": {"pdhg_eps": 1e-6, "pdhg_max_iters": 100000,
+                                "PHIterLimit": 10},
+                   "here": {k: SOC_PH_OPTS[k] for k in ("pdhg_eps",
+                                                         "pdhg_max_iters",
+                                                         "PHIterLimit")}}}
+# cross-scenario cuts: wheel_row's farmer batch (S=100,
+# f32) with the capacity added (40 cut rows, eta weight 0.1), a PH hub
+# with CrossScenarioExtension, the cut spoke and an xhat-shuffle spoke
+# (for the inner bound of the bracket) on the base batch, interleaved.
+# PHIterLimit is cut from wheel_row's 40 to 2: every blended hub solve
+# runs to its 30,000-iteration cap, 6 iterations took 47 s and 3 took
+# 26 s on an NVIDIA H100 80GB HBM3 at 700 W
+CROSS_MAX_CUTS, CROSS_W, CROSS_PH_ITERS = 40, 0.1, 2
+# multiproc mode: wheel_row's dicts with "proc" specs, each
+# spoke a child process on the card over the native windows; then a
+# supervised run whose Lagrangian child chaos crashes (os._exit) at its
+# third step, restarted once, then pruned
+MULTIPROC_TELEMETRY_DIR = os.path.join("build", "wheel_multiproc_telemetry")
+MULTIPROC_HUB_OPTS = {"supervise_interval": 0.5,
+                      "shutdown_join_timeout": 120.0}
+MULTIPROC_CHAOS = {"crash_at_step": 3, "hard_exit": True}
+MULTIPROC_CHAOS_HUB_OPTS = {"supervise_interval": 0.1,
+                            "spoke_max_restarts": 1,
+                            "spoke_restart_backoff": 0.1,
+                            "shutdown_join_timeout": 60.0}
+MULTIPROC_CHAOS_WALL_S = 120.0
+# run checkpoints: farmer PH in f64 at wheel_row's size,
+# the JAX test's options (tests/test_resilience.py), crashed by chaos
+# after iteration CKPT_CRASH_AT's checkpoint and resumed
+CKPT_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 8, "convthresh": 0.0,
+             "pdhg_eps": 1e-7, "pdhg_max_iters": 20000}
+CKPT_CRASH_AT = 4
+CKPT_PATH = os.path.join("build", "checkpoint", "run.ckpt")
+# the kernel at the shapes the soc, cross_scen, wheel_multiproc and
+# checkpoint paths put on it: (row, form, the
+# source of A expected in f32 and f64, the path whose launches it
+# carries).  wheel_row's split prep (100, 7, 12) runs in the multiproc
+# hub and children (f32) and in the checkpoint runs (f64); the
+# cross-scenario hub's augmented dense batch (100, 47, 13); acopf3's SOC
+# batch (4, 814, 600), qs != 0, in the SOC PH (f64; A resident at C=16
+# in f32, streamed in f64)
+NEW_PATH_KERNEL_CASES = (
+    ("split_wheel_row", "split", ("registers", "registers")),
+    ("dense_cross_scen", "dense", ("registers", "registers")),
+    ("qs_soc_ieee14", "dense", ("resident", "streamed")))
 # values the second process's phases share (the aircond HiGHS optimum)
 SHARED = {}
-# the corpus phase, the uc fallback pass, sslp, the golden and the
-# compact phase run in a second process (this script with this flag),
-# which reads the true_size phase's Iter0 line from SECOND_PROCESS_IN;
-# its lines go to SECOND_PROCESS_OUT until main() copies them to its
-# own output; one still running after SECOND_PROCESS_TIMEOUT_S is
-# killed and fails the script; it runs at this CPU niceness
+# the corpus phase, the ALG_CHILD algorithms, soc and cross_scen run in
+# a second process (this script with this flag); its lines go to
+# SECOND_PROCESS_OUT until main() copies them to its own output; one
+# still running after SECOND_PROCESS_TIMEOUT_S is killed and fails the
+# script; it runs at this CPU niceness
 SECOND_PROCESS_FLAG = "--second-process"
 SECOND_PROCESS_OUT = os.path.join("build", "second_process.jsonl")
-SECOND_PROCESS_IN = os.path.join("build", "second_process_in.json")
 SECOND_PROCESS_TIMEOUT_S = 900
 SECOND_PROCESS_NICE = 10
 # the farmer creator path's size (SPBase(scenario_creator=...) against
@@ -490,6 +609,10 @@ COMPACT_S = 256
 PHASE_TIMING_ITERS = 2
 # where the wheel_row_telemetry run writes trace.json and metrics.jsonl
 WHEEL_TELEMETRY_DIR = os.path.join("build", "wheel_row_telemetry")
+# wheel_row_telemetry's PHIterLimit: the row's 40 until the soc,
+# cross_scen, wheel_multiproc and checkpoint phases needed the time
+# (its wall is compared per superstep)
+WHEEL_TELEMETRY_ITERS = 10
 
 # Kernel-vs-twin tolerance, as max|kernel - twin| / max(1, max|twin|):
 # both do the same arithmetic in the same order except the summation
@@ -694,21 +817,29 @@ def compact_rows():
                                                    replace=False))
 
 
-def solver_space_inputs(dtype, split=False, gather=None):
+def solver_space_inputs(dtype, split=False, gather=None, scens=S, cm=CM):
     """The chunk's inputs as PDHGSolver builds them for farmer S=1000,
-    crops_multiplier=10 (Ruiz-scaled prep, cold start, omega=1): from
-    the dense prep, or with split=True from the split prep of farmer's
-    default options (A is then a SplitA).  gather: scenario rows to
-    gather the prep (`ops.pdhg._gather_prep`) and the batch down to, as
-    `solve_compacted` does."""
+    crops_multiplier=10 (or `scens`, `cm`; Ruiz-scaled prep, cold start,
+    omega=1): from the dense prep, or with split=True from the split
+    prep of farmer's default options (A is then a SplitA).  gather:
+    scenario rows to gather the prep (`ops.pdhg._gather_prep`) and the
+    batch down to, as `solve_compacted` does."""
     import torch
 
     from mpisppy_tpu_torch.models import farmer
-    from mpisppy_tpu_torch.ops.pdhg import (_gather_prep, prepare_batch,
-                                            prepare_batch_split)
-    b = farmer.build_batch(S, crops_multiplier=CM,
+    b = farmer.build_batch(scens, crops_multiplier=cm,
                            dtype=np.float32 if dtype == torch.float32
                            else np.float64)
+    return batch_space_inputs(b, split=split, gather=gather)
+
+
+def batch_space_inputs(b, split=False, gather=None):
+    """solver_space_inputs for a batch `b` (boxes may be infinite
+    above)."""
+    import torch
+
+    from mpisppy_tpu_torch.ops.pdhg import (_gather_prep, prepare_batch,
+                                            prepare_batch_split)
     if split:
         p = prepare_batch_split(b.A, *b.model_meta["A_delta_idx"],
                                 b.row_lo, b.row_hi)
@@ -922,6 +1053,8 @@ def kernel_phase(name):
         emit({"phase": "kernel", **row})
     rows.update(corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
     rows.update(alg_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm))
+    rows.update(new_path_kernel_rows(peak_name, bw, f32_peak, f64_peak,
+                                    n_sm))
     rows.update(cluster_forms_rows())
     return rows
 
@@ -1254,7 +1387,10 @@ def true_size_phase(name, split_gap):
            "cut": (None if TRUE_S == 1000 else
                    f"S cut from 1000 to {TRUE_S} (125 until the driver "
                    f"phase, 64 until the corpus phase needed the time) "
-                   f"to stay well inside the "
+                   f"and PH iterations to {TRUE_PH_ITERS} (2 until the "
+                   f"soc, cross_scen, wheel_multiproc and checkpoint "
+                   f"phases needed the time) to stay well inside "
+                   f"the "
                    f"smoke's time limit; crops_multiplier, pdhg_eps and "
                    f"pdhg_max_iters as the bench"),
            "options_beyond_the_bench": {"iter0_infeasibility_ok": True},
@@ -1528,11 +1664,13 @@ def profile_window(ph, n=2):
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            d = by_name.setdefault(e.name, [0, 0.0])
+    # the profiler's raw events: parsing them into prof.events() takes
+    # about a minute of host time for a PH iteration at true size
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            d = by_name.setdefault(e.name(), [0, 0.0])
             d[0] += 1
-            d[1] += e.time_range.elapsed_us()
+            d[1] += e.duration_ns() / 1e3
     busy = sum(v[1] for v in by_name.values())
     chunk = sum(v[1] for k, v in by_name.items() if "pdhg_chunk" in k)
     chunk_n = sum(v[0] for k, v in by_name.items() if "pdhg_chunk" in k)
@@ -1608,13 +1746,32 @@ def bf16x_phase():
     return out
 
 
+def uc_ef_bound(b, names):
+    """(bound, seconds): ef_dual_bound's consensus-EF LP solve at
+    UC_EF_ITERS without its f64 certify: the dual objective of an LP
+    with all-finite boxes bounds at any iterate.  The certify ran to
+    its 100,000-iteration floor (~70 s on an NVIDIA H100 80GB HBM3 at
+    700 W) until the soc, cross_scen, wheel_multiproc and checkpoint
+    phases needed the time."""
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
+    t0 = time.time()
+    ef = ExtensiveForm({"pdhg_eps": 1e-5, "pdhg_max_iters": UC_EF_ITERS},
+                       names, batch=b)
+    check(ef.is_lp and ef.all_bounds_finite,
+          "the uc EF is not an LP with finite boxes: its uncertified dual "
+          "objective would bound nothing")
+    ef.solve_extensive_form(certify=False)
+    return ef.get_dual_bound(), time.time() - t0
+
+
 def uc_cuts():
     """The depth cuts of the uc phase against the bench's row."""
     cuts = {}
     for key, got, bench in (("S", UC_S, 1000),
                             ("ph_iterations", UC_PH_ITERS, 25),
                             ("max_sweeps", UC_SWEEPS, 8),
-                            ("ef_max_iters", UC_EF_ITERS, 100000)):
+                            ("ef_max_iters", UC_EF_ITERS, 100000),
+                            ("ef_f64_certify", False, True)):
         if got != bench:
             cuts[key] = {"bench": bench, "here": got}
     # the depths before the driver phase needed the time
@@ -1640,7 +1797,7 @@ def uc_phase():
 
     from mpisppy_tpu_torch.models import uc
     from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
-    from mpisppy_tpu_torch.opt.ef import ExtensiveForm, ef_dual_bound
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
     from mpisppy_tpu_torch.opt.ph import PH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1708,8 +1865,7 @@ def uc_phase():
           "incumbent")
     wall = time.time() - t0
     k0 = pdhg_chunk.launches
-    ef_b, ef_s = timed("ef_dual_bound", lambda: ef_dual_bound(
-        b, names, max_iters=UC_EF_ITERS))
+    ef_b, ef_s = timed("ef_dual_bound", lambda: uc_ef_bound(b, names))
     ef_step = steps[-1]
     check(pdhg_chunk.launches == k0, "the consensus EF solve launched "
           "the chunk kernel")
@@ -2103,7 +2259,8 @@ def wheel_row_telemetry(names, batch, off_row, opt):
     d = WHEEL_TELEMETRY_DIR
     shutil.rmtree(d, ignore_errors=True)
     telemetry.reset()
-    opts = dict(WHEEL_OPTS, telemetry={"enabled": True, "dir": d})
+    opts = dict(WHEEL_OPTS, PHIterLimit=WHEEL_TELEMETRY_ITERS,
+                telemetry={"enabled": True, "dir": d})
     try:
         ws, row = spin_wheel(*wheel_row_dicts(names, batch, opts),
                              "threads")
@@ -2148,8 +2305,12 @@ def wheel_row_telemetry(names, batch, off_row, opt):
             "crops_multiplier": 1, "dtype": "float32",
             "options": opts, "hub_options": WHEEL_HUB_OPTS,
             **row, "telemetry_dir": d,
+            "cuts": {"PHIterLimit": {"wheel_row": WHEEL_OPTS["PHIterLimit"],
+                                     "here": WHEEL_TELEMETRY_ITERS}},
             "wall_s_telemetry_off": off_row["wall_s"],
-            "wall_ratio_on_over_off": row["wall_s"] / off_row["wall_s"],
+            "s_per_superstep_telemetry_off": off_row["s_per_superstep"],
+            "s_per_superstep_ratio_on_over_off":
+                row["s_per_superstep"] / off_row["s_per_superstep"],
             "wheel_counters": wheel, "traffic_counters": traffic,
             "trace_rows": labels, "spans_per_row_and_name": spans,
             "trace_events": len(evs),
@@ -2248,7 +2409,10 @@ def wheel_phase():
                                       "before the driver phase": 20,
                                       "before the corpus phase": 8,
                                       "before the script ran over its "
-                                      "limit": 5}},
+                                      "limit": 5,
+                                      "before the soc, cross_scen, "
+                                      "wheel_multiproc and checkpoint "
+                                      "phases": 3}},
              "s_per_superstep_before_the_cut": "5.48 (PHIterLimit 20)",
              **row}
     emit(out_b)
@@ -2753,6 +2917,50 @@ def corpus_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
                 check(int((vec[1] != 0).sum()) > 0,
                       f"{case}: the scaled qs is all zero")
             row = measure_form("dense", A, vec, dname, peak, bw, peak_name,
+                               n_sm)
+            check(row["variant"]["source"] == want,
+                  f"{case} {dname} took {row['variant']}, not A in {want}")
+            row["case"] = case
+            row["nonzero_qs"] = int((vec[1] != 0).sum())
+            rows[(case, dname)] = row
+            emit({"phase": "kernel", **row})
+    return rows
+
+
+def new_path_kernel_inputs(case, dtype):
+    """Solver-space chunk inputs at NEW_PATH_KERNEL_CASES' shapes."""
+    import torch
+
+    from mpisppy_tpu_torch.models import acopf3, farmer
+    from mpisppy_tpu_torch.utils.cross_scenario import (
+        add_cross_scenario_capacity)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    if case == "split_wheel_row":
+        return solver_space_inputs(dtype, split=True, scens=WHEEL_S, cm=1)
+    if case == "dense_cross_scen":
+        return batch_space_inputs(add_cross_scenario_capacity(
+            farmer.build_batch(WHEEL_S, dtype=npdt),
+            max_cuts=CROSS_MAX_CUTS, eta_weight=CROSS_W))
+    return model_solver_space_inputs(acopf3.build_soc_batch(
+        SOC_BF, case=SOC_CASE, soc_cut_slots=SOC_SLOTS, dtype=npdt))
+
+
+def new_path_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
+    """The kernel at the shapes of the soc, cross_scen, wheel_multiproc
+    and checkpoint paths against its plain version, f32 and f64
+    (NEW_PATH_KERNEL_CASES)."""
+    import torch
+    rows = {}
+    for case, form, expect in NEW_PATH_KERNEL_CASES:
+        for (store, peak), want in zip(((torch.float32, f32_peak),
+                                        (torch.float64, f64_peak)), expect):
+            dname = str(store).replace("torch.", "")
+            args = new_path_kernel_inputs(case, store)
+            A, vec = args[0], args[1:]
+            if case.startswith("qs_"):
+                check(int((vec[1] != 0).sum()) > 0,
+                      f"{case}: the scaled qs is all zero")
+            row = measure_form(form, A, vec, dname, peak, bw, peak_name,
                                n_sm)
             check(row["variant"]["source"] == want,
                   f"{case} {dname} took {row['variant']}, not A in {want}")
@@ -3487,18 +3695,504 @@ def algorithms_phase(names=ALG_CHILD, phase="algorithms"):
     return out
 
 
-def start_second_process(true_iter0):
+# ---- SOC, cross-scenario cuts, multiproc, checkpoints -------------------
+
+def _soc_flow_idx(b):
+    """(T, nL) column indices of each flow family (P, Pr, Q, Qr) of an
+    SOC batch, from its variable names."""
+    m = b.model_meta
+    T, nL = m["soc_cc"].shape
+    col = {n: i for i, n in enumerate(b.var_names)}
+    return {k: np.array([[col[f"{k}[{t + 1},{l_}]"] for l_ in range(nL)]
+                         for t in range(T)])
+            for k in ("P", "Pr", "Q", "Qr")}
+
+
+def soc_phase():
+    """acopf3's SOC relaxation on the card: soc_refine on IEEE 14-bus
+    (2,2) (rounds, walls, iterations, cuts), the refined EF by the
+    port's f64 EF, dead lines, then PH on the refined batch: its E[obj]
+    against the EF's objective and its bounds around it where they
+    certify."""
+    import torch
+
+    from mpisppy_tpu_torch.extensions.extension import Extension
+    from mpisppy_tpu_torch.models import acopf3
+    from mpisppy_tpu_torch.opt.ef import ExtensiveForm
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.ops import pdhg
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    b = acopf3.build_soc_batch(SOC_BF, case=SOC_CASE,
+                               soc_cut_slots=SOC_SLOTS)
+    rounds, last = [], {}
+    solve = ExtensiveForm.solve_extensive_form
+
+    def timed(self, *a, **kw):
+        t = time.time()
+        res = solve(self, *a, **kw)
+        torch.cuda.synchronize()
+        rounds.append({"wall_s": time.time() - t, "iters": int(res.iters),
+                       "converged": bool(res.converged.all())})
+        last["x"], last["y"] = res.x, res.y
+        return res
+    ExtensiveForm.solve_extensive_form = timed
+    try:
+        b2, hist = acopf3.soc_refine(b, rounds=SOC_ROUNDS,
+                                     opts=dict(SOC_REFINE_OPTS))
+    finally:
+        ExtensiveForm.solve_extensive_form = solve
+    refine_s = time.time() - t0
+    for r, h in zip(rounds, hist):
+        r.update(round=h[0], objective=h[1], max_violation=h[2], cuts=h[3])
+    objs = [h[1] for h in hist]
+    for a, c in zip(objs, objs[1:]):
+        check(c >= a - 1e-3 * abs(a),
+              f"the SOC objective fell across rounds: {objs}")
+    check(hist[-1][2] < hist[0][2] / 10,
+          f"the last round's violation {hist[-1][2]} is not below a "
+          f"tenth of the first's {hist[0][2]}")
+    # the refined EF by the port's own f64 EF, warm from the last round
+    t = time.time()
+    ef = ExtensiveForm(dict(SOC_EF_OPTS), list(b2.tree.scen_names),
+                       batch=b2)
+    res = ef.solve_extensive_form(certify=False, x0=last["x"],
+                                  y0=last["y"])
+    torch.cuda.synchronize()
+    ef_s = time.time() - t
+    ef_obj = ef.get_objective_value()
+    check(b2.c.dtype == torch.float64 and np.isfinite(ef_obj),
+          f"the refined f64 EF objective is {ef_obj}")
+    x = res.x.cpu().numpy()
+    m = b2.model_meta
+    dead = m["soc_alive"] == 0
+    dead_max = {k: float(np.abs(x[:, idx][dead]).max(initial=0.0))
+                for k, idx in [("cc", m["soc_cc"]), ("ss", m["soc_ss"])]
+                + list(_soc_flow_idx(b2).items())}
+    check(int(dead.sum()) > 0, "the outage tree has no dead line")
+    check(max(dead_max.values()) < 1e-6,
+          f"dead lines carry flow or lifted product: {dead_max}")
+    # PH on the refined batch, as the JAX test runs it, with its E[obj]
+    # after Iter0 and after each iteration
+    eobjs = []
+
+    class EobjTrace(Extension):
+        def post_iter0(self):
+            eobjs.append(float(self.ph.Eobjective(self.ph.state.obj)))
+
+        enditer = post_iter0
+
+    t = time.time()
+    ph = PH(dict(SOC_PH_OPTS), list(b2.tree.scen_names), batch=b2,
+            extensions=EobjTrace)
+    conv, eobj, triv = ph.ph_main()
+    xhat_obj, feas = ph.evaluate_xhat(ph.state.xbar)
+    torch.cuda.synchronize()
+    ph_s = time.time() - t
+    check(ph.state.x.device.type == "cuda", "the SOC PH left the card")
+    check(ph.iter0_feas_mass == 1.0,
+          f"PH's Iter0 feasible mass {ph.iter0_feas_mass}")
+    check(np.isfinite(eobj),
+          f"PH on the refined batch: E[obj] {eobj}")
+    check(abs(eobj - ef_obj) <= SOC_EOBJ_TOL_REL * abs(ef_obj),
+          f"PH's E[obj] {eobj} is off the refined EF's {ef_obj}")
+    # PH's bracket of the EF objective, on the bounds that certify: an
+    # uncertified QP solve masks the trivial bound to -inf, and an
+    # x̄ whose evaluation does not certify feasible bounds nothing.
+    # Where neither certifies the bracket holds nothing, and the line
+    # and stderr say so
+    tol = 1e-4 * abs(ef_obj)
+    if np.isfinite(triv):
+        check(triv <= ef_obj + tol, f"PH's trivial bound {triv} above the "
+              f"refined EF objective {ef_obj}")
+    if feas:
+        check(xhat_obj >= ef_obj - tol, f"PH's x̄ ({xhat_obj}) below the "
+              f"refined EF objective {ef_obj}")
+    bracket = ("checked" if np.isfinite(triv) and feas else
+               "one-sided" if np.isfinite(triv) or feas else "vacuous")
+    if bracket != "checked":
+        print(f"chip_smoke: soc: PH's bracket of the refined EF objective "
+              f"is {bracket} (trivial bound {triv}, x̄ certified "
+              f"feasible: {bool(feas)}); E[obj] is held against the f64 "
+              f"EF instead", file=sys.stderr, flush=True)
+    launches = launch_variants()
+    out = {"phase": "soc", "case": SOC_CASE,
+           "branching_factors": list(SOC_BF), "soc_cut_slots": SOC_SLOTS,
+           "shape": list(b2.A.shape), "dtype": "float64",
+           "refine_opts": SOC_REFINE_OPTS, "cuts": SOC_CUTS,
+           "refine_s": refine_s, "rounds": rounds,
+           "ef_options": SOC_EF_OPTS, "ef_objective_f64": ef_obj,
+           "ef_dual_objective": ef.get_dual_bound(), "ef_s": ef_s,
+           "ef_iters": int(res.iters),
+           "ef_converged": bool(res.converged.all()),
+           "ef_pres": float(res.pres.max()), "ef_gap": float(res.gap.max()),
+           "dead_lines": int(dead.sum()), "dead_line_max_abs": dead_max,
+           "ph_options": SOC_PH_OPTS, "ph_s": ph_s, "ph_conv": conv,
+           "ph_eobj": eobj, "ph_trivial_bound": triv,
+           "ph_iter0_feas_mass": ph.iter0_feas_mass,
+           "ph_xhat_obj": xhat_obj, "ph_xhat_feasible": bool(feas),
+           "ph_bracket": bracket, "ph_eobj_by_iteration": eobjs,
+           "eobj_vs_ef_rel": abs(eobj - ef_obj) / max(1.0, abs(ef_obj)),
+           "eobj_tol_rel": SOC_EOBJ_TOL_REL,
+           "ph_iterations": int(ph.state.it), "bracket_tol_rel": 1e-4,
+           "launches": launches,
+           "cluster_launches": cluster_launches(launches),
+           "matmul_chunks": pdhg.matmul_chunks,
+           "consensus_chunks": pdhg.consensus_chunks,
+           "s": time.time() - t0}
+    emit(out)
+    return out
+
+
+def ws_oracle(b):
+    """The wait-and-see value sum_s p_s min f_s by HiGHS, scenario by
+    scenario, in float64 (a plain reference for the seeded cut)."""
+    from scipy.optimize import linprog
+
+    def host(t):
+        return t.detach().cpu().double().numpy()
+
+    A, c, lb, ub = host(b.A), host(b.c), host(b.lb), host(b.ub)
+    lo, hi, prob = host(b.row_lo), host(b.row_hi), host(b.prob)
+    total = 0.0
+    for s in range(b.num_scens):
+        eq = lo[s] == hi[s]
+        up = ~eq & np.isfinite(hi[s])
+        dn = ~eq & np.isfinite(lo[s])
+        res = linprog(c[s], A_ub=np.vstack([A[s][up], -A[s][dn]]),
+                      b_ub=np.concatenate([hi[s][up], -lo[s][dn]]),
+                      A_eq=A[s][eq], b_eq=lo[s][eq],
+                      bounds=list(zip(lb[s], ub[s])), method="highs")
+        check(res.status == 0, f"HiGHS failed on scenario {s}")
+        total += prob[s] * res.fun
+    return float(total)
+
+
+def cross_scen_phase():
+    """Cross-scenario cuts on the card: wheel_row's farmer batch with
+    the capacity added, a PH hub with CrossScenarioExtension, the cut
+    spoke and an xhat-shuffle spoke, interleaved: cuts installed, the
+    seeded cut's trivial bound against the wait-and-see value by HiGHS,
+    the bounds around the HiGHS EF optimum."""
+    from mpisppy_tpu_torch.cylinders.cross_scen_spoke import (
+        CrossScenarioCutSpoke)
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.cylinders.xhatshufflelooper_bounder import (
+        XhatShuffleInnerBound)
+    from mpisppy_tpu_torch.extensions.cross_scen_extension import (
+        CrossScenarioExtension)
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.utils.cross_scenario import (
+        add_cross_scenario_capacity, cross_meta)
+    from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
+    t0 = time.time()
+    names = farmer.scenario_names_creator(WHEEL_S)
+    base = farmer.build_batch(WHEEL_S, dtype=np.float32)
+    opts = dict(WHEEL_OPTS, PHIterLimit=CROSS_PH_ITERS)
+    hub_dict = {"hub_class": PHHub,
+                "hub_kwargs": {"options": dict(WHEEL_HUB_OPTS)},
+                "opt_class": PH,
+                "opt_kwargs": {"options": dict(opts),
+                               "all_scenario_names": names,
+                               "batch": add_cross_scenario_capacity(
+                                   base, max_cuts=CROSS_MAX_CUTS,
+                                   eta_weight=CROSS_W),
+                               "extensions": CrossScenarioExtension}}
+    spoke_dicts = [
+        {"spoke_class": cls, "spoke_kwargs": {"options": {}},
+         "opt_class": Xhat_Eval,
+         "opt_kwargs": {"options": dict(opts), "all_scenario_names": names,
+                        "batch": base}}
+        for cls in (CrossScenarioCutSpoke, XhatShuffleInnerBound)]
+    ws, row = spin_wheel(hub_dict, spoke_dicts, "interleaved")
+    opt = ws.spcomm.opt
+    n_cuts = opt.extobject.n_cuts
+    highs, _ = ef_lp_oracle(farmer.build_batch(WHEEL_S))
+    ws_value = ws_oracle(farmer.build_batch(WHEEL_S))
+    check(n_cuts > 1, f"{n_cuts} cuts installed (the seeded one only)")
+    check(cross_meta(opt.batch)["n_cuts"] == n_cuts,
+          "the batch's cut rows disagree with the extension's count")
+    check(abs(opt.trivial_bound - ws_value) <= 1e-4 * abs(ws_value),
+          f"the seeded cut's trivial bound {opt.trivial_bound} is not "
+          f"the wait-and-see value {ws_value}")
+    tol = CORPUS_BRACKET_TOL_REL * abs(highs)
+    check(row["best_outer"] <= highs + tol
+          and row["best_inner"] >= highs - tol,
+          f"cross-scenario bounds [{row['best_outer']}, "
+          f"{row['best_inner']}] do not bracket the HiGHS optimum {highs}")
+    out = {"phase": "cross_scen", "S": WHEEL_S, "dtype": "float32",
+           "max_cuts": CROSS_MAX_CUTS, "eta_weight": CROSS_W,
+           "options": opts, "hub_options": WHEEL_HUB_OPTS,
+           "cuts": {"PHIterLimit": {"wheel_row": WHEEL_OPTS["PHIterLimit"],
+                                    "here": CROSS_PH_ITERS,
+                                    "before the script needed the time":
+                                        20, "before the new phases gave "
+                                        "time back": 3}},
+           "n_cuts": n_cuts, "trivial_bound": opt.trivial_bound,
+           "wait_and_see_highs": ws_value, "highs_optimum": highs,
+           "bracket_tol_rel": CORPUS_BRACKET_TOL_REL,
+           "launches": launch_variants(), **row, "s": time.time() - t0}
+    emit(out)
+    return out
+
+
+def _proc_dicts(names, opts, hub_opts):
+    """wheel_row's dicts (wheel_row_dicts) with `hub_opts` and the
+    "proc" spec from which each child rebuilds wheel_row's batch."""
+    from mpisppy_tpu_torch.models import farmer
+    hub_dict, spoke_dicts = wheel_row_dicts(
+        names, farmer.build_batch(WHEEL_S, dtype=np.float32), opts)
+    hub_dict["hub_kwargs"]["options"] = hub_opts
+    spec = {"module": "mpisppy_tpu_torch.models.farmer",
+            "builder": "build_batch",
+            "kwargs": {"num_scens": WHEEL_S, "dtype": "float32"}}
+    for sd in spoke_dicts:
+        sd["proc"] = {"batch": spec}
+    return hub_dict, spoke_dicts
+
+
+def _child_launches(ws):
+    """The children's kernel launches from their info files, by form."""
+    import collections
+    by_form, shapes = collections.Counter(), collections.Counter()
+    for info in ws.child_info:
+        for form, S_, M, N, dt, n in (info or {}).get("kernel_launches", ()):
+            by_form[form] += n
+            shapes[(form, S_, M, N, dt)] += n
+    return by_form, shapes
+
+
+def wheel_multiproc_phase(wrow):
+    """Multiproc mode on the card: wheel_row's hub here, its Lagrangian
+    and xhat-shuffle spokes as child processes on the card over the
+    native windows (telemetry on, phase timing off); then a supervised
+    run whose only spoke chaos crashes twice and is pruned."""
+    import torch
+
+    from mpisppy_tpu_torch import telemetry
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    from mpisppy_tpu_torch.resilience import wheel_counters
+    from mpisppy_tpu_torch.runtime import native
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    t0 = time.time()
+    check(native.available(), "the native exchange library is unavailable")
+    names = farmer.scenario_names_creator(WHEEL_S)
+    d = MULTIPROC_TELEMETRY_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    opts = dict(WHEEL_OPTS, telemetry={"enabled": True, "dir": d,
+                                       "phase_timing": False})
+    hub_dict, spoke_dicts = _proc_dicts(
+        names, opts, dict(WHEEL_HUB_OPTS, **MULTIPROC_HUB_OPTS))
+    telemetry.reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    try:
+        ws = WheelSpinner(hub_dict, spoke_dicts, mode="multiproc").spin()
+        torch.cuda.synchronize()
+    finally:
+        telemetry.reset()
+    wall = time.time() - t
+    hub = ws.spcomm
+    hub_by_form = pdhg_chunk.launches_by("form")
+    child_by_form, child_shapes = _child_launches(ws)
+    for h in hub.spokes:
+        check(h.proc is not None and h.proc.returncode == 0,
+              f"spoke process {h.spoke_name} ended with "
+              f"{getattr(h.proc, 'returncode', None)}")
+    devices = [(i or {}).get("device", "") for i in ws.child_info]
+    check(all(dv.startswith("cuda") for dv in devices),
+          f"the children ran on {devices}, not the card")
+    check(all((i or {}).get("forbidden_modules") == [] for i in
+              ws.child_info), "a child loaded JAX or the JAX package")
+    check(sum(child_by_form.values()) > 0,
+          "the children launched the kernel no time")
+    outer, inner = float(ws.BestOuterBound), float(ws.BestInnerBound)
+    opt = wrow["ef_optimum_f64"]
+    tol = 1e-5 * abs(opt)
+    check(outer <= opt + tol and inner >= opt - tol,
+          f"multiproc bounds [{outer}, {inner}] do not bracket the "
+          f"farmer-{WHEEL_S} optimum {opt}")
+    check(wheel_counters(ws) == {"spoke_restarts": 0, "spokes_failed": 0},
+          f"resilience counters {wheel_counters(ws)}")
+    with open(os.path.join(d, "trace.json")) as f:
+        evs = json.load(f)["traceEvents"]
+    rows = {e["pid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    labels = sorted(rows.values())
+    spans = {}
+    for e in evs:
+        if e["ph"] == "X":
+            key = rows.get(e["pid"], e["pid"])
+            spans[key] = spans.get(key, 0) + 1
+    for i, h in enumerate(hub.spokes):
+        lab = f"spoke{i}:{h.spoke_name}"
+        check(lab in labels and spans.get(lab, 0) > 0,
+              f"the trace has no row with spans for {lab}: {labels}")
+    supersteps = hub.current_iteration()
+    gap = abs(inner - outer) / max(1.0, abs(inner))
+    out = {"phase": "wheel_multiproc", "S": WHEEL_S, "dtype": "float32",
+           "options": opts,
+           "hub_options": dict(WHEEL_HUB_OPTS, **MULTIPROC_HUB_OPTS),
+           "exchange_backend": ws.exchange_backend_used, "wall_s": wall,
+           "ready_wait_s": ws.ready_wait_s, "hub_loop_s": ws.hub_loop_s,
+           "supersteps": supersteps,
+           # the whole spin over its supersteps: the span of wheel_row's
+           # threads-mode figure (spin_wheel), start-up and shutdown in
+           "s_per_superstep": wall / supersteps,
+           "s_per_superstep_threads_wheel_row": wrow["s_per_superstep"],
+           # the hub's loop alone, after its children attached
+           "s_per_superstep_hub_loop": ws.hub_loop_s / supersteps,
+           "best_outer": outer, "best_inner": inner, "rel_gap": gap,
+           "certified": gap <= WHEEL_HUB_OPTS["rel_gap"],
+           "ef_optimum_f64": opt, "child_devices": devices,
+           "launches_by_form_hub": hub_by_form,
+           "launches_by_form_children": dict(child_by_form),
+           "launch_shapes_children": [
+               {"form": k[0], "S": k[1], "M": k[2], "N": k[3],
+                "dtype": k[4], "launches": n}
+               for k, n in sorted(child_shapes.items())],
+           "launch_shapes_hub": launch_table(),
+           "trace_rows": labels, "spans_per_row": spans}
+    emit(out)
+
+    # the supervised run: the Lagrangian child hard-exits at its third
+    # step, is restarted once, dies again and is pruned
+    class UntilPruned(PHHub):
+        def setup_hub(self):
+            super().setup_hub()
+            self._t0 = time.monotonic()
+
+        def is_converged(self):
+            super().is_converged()
+            if self.supervisor is not None and self.supervisor.spokes_failed:
+                return True
+            time.sleep(0.02)
+            return time.monotonic() - self._t0 > MULTIPROC_CHAOS_WALL_S
+
+    hub_dict, spoke_dicts = _proc_dicts(
+        names, dict(WHEEL_OPTS, PHIterLimit=10 ** 6),
+        dict(MULTIPROC_CHAOS_HUB_OPTS))
+    hub_dict["hub_class"] = UntilPruned
+    # the Lagrangian spoke alone, with the chaos crash
+    spoke_dicts = spoke_dicts[:1]
+    spoke_dicts[0]["spoke_kwargs"] = {"options": {"chaos": MULTIPROC_CHAOS}}
+    t = time.time()
+    ws = WheelSpinner(hub_dict, spoke_dicts, mode="multiproc").spin()
+    chaos_wall = time.time() - t
+    hub = ws.spcomm
+    sup = hub.supervisor
+    check(sup.spoke_restarts == 1 and sup.spokes_failed == 1,
+          f"restarts {sup.spoke_restarts}, pruned {sup.spokes_failed}")
+    check([r["rc"] for r in sup.exit_reports] == [13, 13],
+          f"exit reports {sup.exit_reports}")
+    check(hub.failed_spokes and hub.failed_spokes[0][0]
+          == "LagrangianOuterBound", f"failed spokes {hub.failed_spokes}")
+    check(wheel_counters(ws) == {"spoke_restarts": 1, "spokes_failed": 1},
+          f"resilience counters {wheel_counters(ws)}")
+    outer = float(ws.BestOuterBound)
+    check(np.isfinite(outer) and outer <= opt + tol,
+          f"the hub's outer bound {outer} after the prune is not valid")
+    shutil.rmtree(ws.workdir, ignore_errors=True)
+    chaos = {"phase": "wheel_multiproc_chaos", "chaos": MULTIPROC_CHAOS,
+             "hub_options": MULTIPROC_CHAOS_HUB_OPTS, "wall_s": chaos_wall,
+             "supersteps": hub.current_iteration(),
+             "spoke_restarts": sup.spoke_restarts,
+             "spokes_failed": sup.spokes_failed,
+             "exit_codes": [r["rc"] for r in sup.exit_reports],
+             "incarnations": [r["incarnation"] for r in sup.exit_reports],
+             "best_outer": outer, "wheel_counters": wheel_counters(ws),
+             "s": time.time() - t0}
+    emit(chaos)
+    return out
+
+
+def checkpoint_phase():
+    """Run checkpoints on the card: farmer PH in f64 at wheel_row's
+    size, two uninterrupted runs (they must agree), a run chaos crashes
+    after iteration CKPT_CRASH_AT's checkpoint, and its resume, whose
+    W, x̄ and conv must equal the uninterrupted run's (1e-9)."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    from mpisppy_tpu_torch.resilience.chaos import ChaosError
+    t0 = time.time()
+    names = farmer.scenario_names_creator(WHEEL_S)
+    os.makedirs(os.path.dirname(CKPT_PATH), exist_ok=True)
+    for f in (CKPT_PATH + ".npz", CKPT_PATH + ".npz.tmp"):
+        if os.path.exists(f):
+            os.remove(f)
+
+    def run(extra=None):
+        ph = PH(dict(CKPT_OPTS, **(extra or {})), names,
+                batch=farmer.build_batch(WHEEL_S))
+        t = time.time()
+        try:
+            ph.ph_main(finalize=False)
+            crashed = None
+        except ChaosError as e:
+            crashed = str(e)
+        torch.cuda.synchronize()
+        return ph, time.time() - t, crashed
+
+    torch.cuda.synchronize()
+    reset_counts()
+    a, a_s, _ = run()
+    a2, a2_s, _ = run()
+
+    def diff(p, q):
+        return {f: float((getattr(p.state, f) - getattr(q.state, f))
+                         .abs().max())
+                for f in ("W", "xbar", "x", "y")} | {
+            "conv": abs(float(p.state.conv) - float(q.state.conv))}
+
+    def close(p, q):
+        return all(torch.allclose(getattr(p.state, f), getattr(q.state, f),
+                                  rtol=1e-9, atol=1e-9)
+                   for f in ("W", "xbar")) and \
+            abs(float(p.state.conv) - float(q.state.conv)) \
+            <= 1e-8 * abs(float(q.state.conv)) + 1e-12
+    replay = diff(a2, a)
+    check(close(a2, a), f"two uninterrupted runs differ: {replay}")
+    b, b_s, crashed = run({"run_checkpoint": CKPT_PATH,
+                           "chaos": {"crash_at_iter": CKPT_CRASH_AT}})
+    check(crashed is not None and f"iter {CKPT_CRASH_AT}" in crashed,
+          f"the chaos crash did not fire: {crashed}")
+    saved_it = int(np.load(CKPT_PATH + ".npz")["it"])
+    check(saved_it == CKPT_CRASH_AT, f"the checkpoint holds it={saved_it}")
+    c, c_s, _ = run({"resume_from": CKPT_PATH})
+    check(int(c.state.it) == int(a.state.it) == CKPT_OPTS["PHIterLimit"],
+          f"the resumed run ended at it={int(c.state.it)}")
+    resumed = diff(c, a)
+    check(close(c, a) and c.trivial_bound == a.trivial_bound,
+          f"the resumed run differs from the uninterrupted one: {resumed}")
+    check(a.state.x.device.type == "cuda", "the checkpoint runs left the card")
+    out = {"phase": "checkpoint", "S": WHEEL_S, "dtype": "float64",
+           "options": CKPT_OPTS, "crash_at_iter": CKPT_CRASH_AT,
+           "uninterrupted_s": [a_s, a2_s], "crashed_s": b_s,
+           "resumed_s": c_s, "max_abs_diff_two_uninterrupted": replay,
+           "two_uninterrupted_bitwise_equal": max(replay.values()) == 0.0,
+           "max_abs_diff_resumed": resumed, "tol": 1e-9,
+           "checkpoint_bytes": os.path.getsize(CKPT_PATH + ".npz"),
+           "launches_by_form": pdhg_chunk.launches_by("form"),
+           "launch_shapes": launch_table(), "s": time.time() - t0}
+    emit(out)
+    return out
+
+
+def start_second_process():
     """Start the second process on the same card (this script with
     SECOND_PROCESS_FLAG, see second_process), its lines going to
-    SECOND_PROCESS_OUT; the true_size phase's Iter0 line
-    (`true_iter0`, for the compact phase) goes to it in
-    SECOND_PROCESS_IN.  Its phases are host-bound; run beside the main
+    SECOND_PROCESS_OUT.  Its phases are host-bound; run beside the main
     process's later phases they take little time of their own from the
     script's limit.  It runs at a lower CPU priority with one host
     thread per library, so that the main process keeps its cores."""
     os.makedirs(os.path.dirname(SECOND_PROCESS_OUT), exist_ok=True)
-    with open(SECOND_PROCESS_IN, "w") as fh:
-        json.dump(true_iter0, fh)
     env = dict(os.environ, **{k: "1" for k in (
         "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
     with open(SECOND_PROCESS_OUT, "w") as fh:
@@ -3533,8 +4227,7 @@ def join_second_process(child):
                 by_phase[d["phase"]] = d
     sys.stdout.flush()
     check(rc == 0, f"the second process ended with {rc} (stderr above)")
-    for phase in ("corpus", "uc_fallback", "sslp", "golden", "compact",
-                  "algorithms", "child"):
+    for phase in ("corpus", "algorithms", "soc", "cross_scen", "child"):
         check(phase in by_phase, f"the second process printed no {phase} "
               "line")
     for phase in ("corpus", "algorithms"):
@@ -3548,10 +4241,10 @@ def join_second_process(child):
 
 
 def second_process(parent_pid):
-    """The second process of main(): the corpus phase, then the uc
-    fallback pass, sslp, the farmer-3 golden and the compact phase,
-    each as main() ran them before (counts zeroed just before each
-    path); the kernel library is the one main()'s build phase built.
+    """The second process of main(): the corpus phase, the ALG_CHILD
+    algorithms, soc and cross_scen, each as main() ran them before
+    (counts zeroed just before each path); the kernel library is the
+    one main()'s build phase built.
     Its last line is `child` with its wall.  It is killed when main()'s
     process ends (PR_SET_PDEATHSIG), so that no run outlives the
     script."""
@@ -3569,13 +4262,9 @@ def second_process(parent_pid):
     from mpisppy_tpu_torch.ops import pdhg_chunk
     disable_tictoc_output()
     pdhg_chunk.load_library()
-    with open(SECOND_PROCESS_IN) as fh:
-        true_iter0 = json.load(fh)
     for name, fn in (("corpus", corpus_phase),
-                     ("uc_fallback", uc_fallback_pass),
-                     ("sslp", sslp_phase), ("golden", golden_phase),
-                     ("compact", lambda: compact_phase(true_iter0)),
-                     ("algorithms", algorithms_phase)):
+                     ("algorithms", algorithms_phase),
+                     ("soc", soc_phase), ("cross_scen", cross_scen_phase)):
         t = time.time()
         fn()
         emit({"phase": f"{name}_done", "s": time.time() - t})
@@ -3641,7 +4330,7 @@ def main():
     # the corpus phase runs in a second process from here on, beside
     # the phases below (the kernel rows and the phases above are timed
     # alone on the card)
-    child = start_second_process(ts["iter0"])
+    child = start_second_process()
     try:
         kernels_line = main_after_true_size(t_all, rows, sl, bx, sp, ts,
                                             child)
@@ -3655,6 +4344,14 @@ def main():
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _launched(rows, form, M, N, dtype):
+    """The launches of `rows` (launch_table / launch_variants rows) of
+    `form` at (M, N) in `dtype`, at any S."""
+    return sum(r["launches"] for r in rows
+               if (r["form"], r["M"], r["N"], r["dtype"])
+               == (form, M, N, dtype))
 
 
 def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
@@ -3674,9 +4371,25 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
     alg_main = algorithms_phase(ALG_MAIN, "algorithms_main")
     emit({"phase": "algorithms_main_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
+    t = time.time()
+    mp = wheel_multiproc_phase(wrow)
+    emit({"phase": "wheel_multiproc_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
+    t = time.time()
+    ck = checkpoint_phase()
+    emit({"phase": "checkpoint_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
+    # the compact phase, the uc fallback pass, sslp and the golden ran in
+    # the second process until soc and cross_scen joined it there
+    t = time.time()
+    cp = compact_phase(ts["iter0"])
+    ucf = uc_fallback_pass()
+    sslp_phase()
+    golden_phase()
+    emit({"phase": "compact_ucf_sslp_golden_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
     second = join_second_process(child)
-    corpus, ucf, cp, alg = (second[k] for k in (
-        "corpus", "uc_fallback", "compact", "algorithms"))
+    corpus, alg = (second[k] for k in ("corpus", "algorithms"))
     alg_launched = alg["launched"] + alg_main["launched"]
     for case, shape, _ in ALG_KERNEL_CASES:
         check(alg_launched[("dense", shape[1], shape[2], "float32")] > 0,
@@ -3831,13 +4544,70 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
         check(n32 > 0, f"the dense form at {case}'s {shape} launched no "
               "time in f32 on the algorithms path")
         kernels.append(entry)
+    # the rows of the new paths, each with its path's launches (counted from
+    # zero on that path): the multiproc hub and children (f32) and the
+    # checkpoint runs (f64) at wheel_row's split shape, the
+    # cross-scenario hub's augmented dense batch, the SOC PH (f64)
+    soc, cross = second["soc"], second["cross_scen"]
+    mp_rows = mp["launch_shapes_hub"] + mp["launch_shapes_children"]
+    new_paths = {"wheel_multiproc": mp_rows,
+                 "checkpoint": ck["launch_shapes"],
+                 "cross_scen": cross["launches"], "soc": soc["launches"]}
+    path_of = {"split_wheel_row": ("wheel_multiproc", "checkpoint"),
+               "dense_cross_scen": ("cross_scen", "cross_scen"),
+               "qs_soc_ieee14": ("soc", "soc")}
+    for case, form, _ in NEW_PATH_KERNEL_CASES:
+        f32, f64 = rows[(case, "float32")], rows[(case, "float64")]
+        n32, n64 = (_launched(new_paths[path], form, r["M"], r["N"], d)
+                    for path, r, d in zip(path_of[case], (f32, f64),
+                                          ("float32", "float64")))
+        main_row, n_main, main_dt = ((f64, n64, "float64")
+                                     if case == "qs_soc_ieee14"
+                                     else (f32, n32, "float32"))
+        other = f32 if main_row is f64 else f64
+        entry = {
+            "name": f"pdhg_chunk_{case}", "route": "cuda",
+            "source": "mpisppy_tpu_torch/csrc/pdhg_chunk.cu",
+            "replaces": "mpisppy_tpu/ops/pallas_pdhg.py:106",
+            "launches": n_main,
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a chunk of "
+                            "PDHG steps",
+            "form": form, "dtype": main_dt,
+            "shape": [main_row["S"], main_row["M"], main_row["N"]],
+            "variant_source": main_row["variant"]["source"],
+            "share_of_bound": main_row["share_of_bound"],
+            **{k: main_row[k] for k in CLUSTER_KEYS},
+            "nonzero_qs": main_row["nonzero_qs"],
+            "launched_on": path_of[case],
+            "f64" if main_dt == "float32" else "f32": {
+                **{k: other[k] for k in keys + ("variant",)},
+                "launches": n64 if main_dt == "float32" else n32}}
+        check(n_main > 0, f"the {form} form at {case}'s (M, N) = "
+              f"({main_row['M']}, {main_row['N']}) launched no time in "
+              f"{main_dt} on {path_of[case][0]}")
+        if case == "split_wheel_row":
+            check(n64 > 0, "the split form at wheel_row's shape launched "
+                  "no time in f64 on the checkpoint runs")
+        kernels.append(entry)
+    through["soc"] = soc["cluster_launches"]
+    check(through["soc"] > 0, "soc launched the cluster kernel no time")
+    # every entry: its form's launches at any shape on the new paths
+    for e in kernels:
+        e["launches_new_paths_by_form"] = {
+            path: sum(r["launches"] for r in rs if r["form"] == e["form"])
+            for path, rs in new_paths.items()}
     # the cluster kernel's launches on the paths that must run it, on the
     # rows of their shapes
     for e in kernels:
         path = {"pdhg_chunk_shared_uc": "uc_fallback",
                 "pdhg_chunk_qs_ieee14": "corpus_acopf3",
                 "pdhg_chunk_hull_qp_fwph": "alg_fwph",
-                "pdhg_chunk_bundles_aircondB": "alg_bundles"}.get(e["name"])
+                "pdhg_chunk_bundles_aircondB": "alg_bundles",
+                "pdhg_chunk_qs_soc_ieee14": "soc"}.get(e["name"])
         if path is not None:
             e["cluster_kernel_launches"] = {path: through[path]}
     return {"kernels": kernels}

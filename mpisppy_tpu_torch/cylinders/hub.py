@@ -18,9 +18,12 @@ gauges and a hub.bounds counter sample on the trace, and each
 `LShapedHub` runs L-shaped (`opt/lshaped.py`), sends its candidate x̂
 to nonant spokes and feeds no W spokes.
 
-Not ported yet: the multiproc supervisor (ROADMAP.md queue A item 11:
-`supervisor` stays None) and the wiring of an extension to its spoke's
-window for `cross_scen_spoke` (item 11).
+An extension of the hub optimizer with `attach_spoke` is wired to each
+spoke that `provides_cuts` (the cross-scenario cut spoke and its
+extension).  `window_path_prefix` puts the windows in mmap files
+(`<prefix><i>.to_spoke` / `.to_hub`, the native seqlock), which spoke
+processes attach to in multiproc mode; there `supervisor` (set by the
+wheel, `resilience/supervisor.py`) is polled at every sync.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import collections
 
 import numpy as np
 
-from .. import global_toc, not_ported
+from .. import global_toc
 from ..device import host
 from ..resilience.bounds import BoundGuard
 from .spcommunicator import SPCommunicator, WindowPair
@@ -39,9 +42,6 @@ from .spoke import ConvergerSpokeType
 class Hub(SPCommunicator):
     def __init__(self, spbase_object, spokes=(), options=None):
         super().__init__(spbase_object, options=options)
-        if self.options.get("window_path_prefix") is not None:
-            raise not_ported("file-backed windows (window_path_prefix, "
-                             "the native seqlock)", 11)
         self.spokes = list(spokes)
         self.pairs = []
         if self.opt.is_minimizing:
@@ -74,7 +74,10 @@ class Hub(SPCommunicator):
         # wheel's bounds stand without it, but a caller must be able to
         # see that a pass failed
         self.finalize_failures = []
+        # multiproc mode: the process supervisor (set by the wheel,
+        # polled from sync()) and the nonzero exits it collected
         self.supervisor = None
+        self.spoke_exit_reports = []
         self._bound_guard = (
             BoundGuard(rtol=self.options.get("bound_cross_rtol", 1e-2))
             if self.options.get("bound_guard", True) else None)
@@ -89,7 +92,9 @@ class Hub(SPCommunicator):
         self._g_inner = self.telemetry.gauge("hub.best_inner")
 
     def _spoke_name(self, i):
-        return type(self.spokes[i]).__name__
+        # a multiproc SpokeHandle carries the spoke class's name
+        sp = self.spokes[i]
+        return getattr(sp, "spoke_name", type(sp).__name__)
 
     def _mark_spoke_failed(self, i, exc):
         """Prune spoke i out of every wiring set (hub thread only)."""
@@ -141,6 +146,7 @@ class Hub(SPCommunicator):
         self.spoke_chars = {}
         self.pairs = []
         bkw = self.options.get("window_backend_kwargs") or {}
+        prefix = self.options.get("window_path_prefix")
         for i, sp in enumerate(self.spokes):
             for cst in sp.converger_spoke_types:
                 if cst == ConvergerSpokeType.OUTER_BOUND:
@@ -156,6 +162,7 @@ class Hub(SPCommunicator):
                 hub_length=sp.receive_length(),
                 spoke_length=sp.send_length(),
                 backend=self.options.get("window_backend", "python"),
+                path_prefix=None if prefix is None else f"{prefix}{i}",
                 backend_kwargs=bkw.get(i))
             sp.pair = pair
             self.pairs.append(pair)
@@ -164,6 +171,15 @@ class Hub(SPCommunicator):
         self.corrupt_reads = np.zeros(len(self.spokes), np.int64)
         self.has_outerbound_spokes = bool(self.outerbound_idx)
         self.has_innerbound_spokes = bool(self.innerbound_idx)
+        # wire extensions that consume a spoke's feed (the
+        # cross-scenario cut extension reads its spoke's window)
+        ext = getattr(self.opt, "extobject", None)
+        if ext is not None:
+            for e in [ext] + list(getattr(ext, "extensions", [])):
+                if hasattr(e, "attach_spoke"):
+                    for sp in self.spokes:
+                        if getattr(sp, "provides_cuts", False):
+                            e.attach_spoke(sp)
 
     # -- gaps -------------------------------------------------------------
     def compute_gaps(self):
@@ -337,6 +353,15 @@ class Hub(SPCommunicator):
         self._drain_failures()
         self.receive_outerbounds()
         self.receive_innerbounds()
+        # nonzero spoke exits and their log tails (multiproc mode,
+        # collected by the supervisor)
+        for rep in self.spoke_exit_reports:
+            how = "hung" if rep.get("hung") else f"rc={rep['rc']}"
+            tail = rep.get("log_tail") or ""
+            global_toc(
+                f"WARNING: spoke {rep['spoke']} ({rep['name']}) "
+                f"incarnation {rep['incarnation']} {how}"
+                + (f"; log tail:\n{tail}" if tail.strip() else ""))
         global_toc("Statistics at termination")
         self.print_init = True
         self.screen_trace()
@@ -359,6 +384,8 @@ class PHHub(Hub):
     def sync(self):
         with self.telemetry.span("hub.sync"):
             self._drain_failures()
+            if self.supervisor is not None:
+                self.supervisor.poll()
             self.send_ws()
             self.send_nonants()
             if self.drive_spokes_inline:
@@ -428,6 +455,8 @@ class LShapedHub(Hub):
     def sync(self, send_nonants=True):
         with self.telemetry.span("hub.sync"):
             self._drain_failures()
+            if self.supervisor is not None:
+                self.supervisor.poll()
             if send_nonants:
                 self.send_nonants()
             if self.drive_spokes_inline:

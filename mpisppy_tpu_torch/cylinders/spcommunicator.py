@@ -9,11 +9,13 @@ readers tell fresh from stale data by the id, and write_id == -1 is
 the kill signal.  Device tensors cross it as host float64 copies;
 f32 and bf16 values round-trip through float64 exactly.
 
-Backends: "python" (alias "seqlock") is the mailbox below; names
-registered through `register_window_backend` plug in behind the same
-contract.  Not ported yet: the C++ "native" seqlock (ROADMAP.md queue
-A item 11) and the device-resident "device" / "collective" backends
-(item 13), which raise where selected.
+Backends: "python" (alias "seqlock") is the mailbox below; "native"
+is the C++ seqlock (`runtime/exchange.cpp`, lock-free reads), in
+memory or, with a path prefix, in mmap files that another process
+attaches to (multiproc mode); names registered through
+`register_window_backend` plug in behind the same contract.  Not
+ported yet: the device-resident "device" / "collective" backends
+(ROADMAP.md queue A item 13), which raise where selected.
 
 Window traffic is counted in the telemetry registry (window.writes,
 window.reads, window.stale_reads, window.kill_signals): each cylinder
@@ -109,7 +111,7 @@ class Window:
 _WINDOW_BACKENDS: dict = {}
 # backends of the JAX package that the port does not carry yet, with
 # their ROADMAP.md queue A items
-_UNPORTED_BACKENDS = {"native": 11, "device": 13, "collective": 13}
+_UNPORTED_BACKENDS = {"device": 13, "collective": 13}
 
 
 def register_window_backend(name, pair_factory):
@@ -121,12 +123,29 @@ def register_window_backend(name, pair_factory):
 class WindowPair:
     """The two windows of one hub<->spoke pair: hub-owned `to_spoke`
     and spoke-owned `to_hub`.  backend "python" / "seqlock" is the host
-    mailbox; any other name resolves through the registered factories,
-    which get `backend_kwargs`."""
+    mailbox; "native" the C++ seqlock, in the files
+    `<path_prefix>.to_spoke` / `.to_hub` when a prefix is given (the
+    creator owns and resets them; attach=True joins existing files, as
+    a spoke process does, and must not reset them; the in-memory
+    backends ignore the prefix); any other name
+    resolves through the registered factories, which get
+    `backend_kwargs`."""
 
     def __init__(self, hub_length: int, spoke_length: int,
-                 backend: str = "python",
+                 backend: str = "python", path_prefix: str | None = None,
+                 attach: bool = False,
                  backend_kwargs: dict | None = None):
+        if backend == "native":
+            from ..runtime import NativeWindow
+
+            def pth(tag):
+                return None if path_prefix is None \
+                    else f"{path_prefix}.{tag}"
+            self.to_spoke = NativeWindow(hub_length, path=pth("to_spoke"),
+                                         reset=not attach)
+            self.to_hub = NativeWindow(spoke_length, path=pth("to_hub"),
+                                       reset=not attach)
+            return
         if backend in ("python", "seqlock"):
             self.to_spoke = Window(hub_length)
             self.to_hub = Window(spoke_length)

@@ -10,8 +10,13 @@ Windows carry host float64 vectors; a spoke turns them back into
 tensors of its batch's dtype on its device where it solves.  With
 telemetry on, each step is a `<class>.step` span on the spoke's own
 trace row (`timed_step`), and each bound a spoke posts sets its
-wheel.slice_bound.<track> gauge.  Not ported yet: the `chaos` fault
-injectors (ROADMAP.md queue A item 6).
+wheel.slice_bound.<track> gauge.
+
+Fault injection (`resilience/chaos.py`, inert unless the spoke options
+carry "chaos" or MPISPPY_TPU_CHAOS is set): each hub read ticks the
+spoke's step clock (crash, hard exit, hang), and each post may be
+NaN-poisoned, delayed, dropped or corrupted.  `algo_state` /
+`restore_algo_state` carry a spoke's algorithm state across a restart.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ import os
 import time
 
 import numpy as np
+import torch
 
-from .. import not_ported
 from ..device import host
+from ..resilience.chaos import ChaosInjector
 from .spcommunicator import SPCommunicator, Window
 
 
@@ -40,11 +46,10 @@ class Spoke(SPCommunicator):
 
     def __init__(self, spbase_object, options=None):
         super().__init__(spbase_object, options=options)
-        if self.options.get("chaos") is not None:
-            raise not_ported("spoke option 'chaos'", 6)
         self.pair = None           # WindowPair, set by the hub
         self.last_hub_id = 0
         self._killed = False
+        self.chaos = ChaosInjector.from_options(self.options.get("chaos"))
         # bound spokes re-post their bound at this cadence so that the
         # to_hub write_id keeps advancing (a liveness signal)
         self.heartbeat_interval = float(
@@ -53,14 +58,25 @@ class Spoke(SPCommunicator):
 
     # -- hub traffic ------------------------------------------------------
     def spoke_to_hub(self, values):
-        """Post this spoke's vector."""
+        """Post this spoke's vector (through the chaos write hooks)."""
+        values = self.chaos.poison(values)
+        self.chaos.pre_write()
+        fate = self.chaos.write_fate()
+        if fate == "drop":
+            return
+        if fate == "corrupt":
+            corrupt = getattr(self.pair.to_hub, "corrupt_next_write", None)
+            if corrupt is not None:
+                corrupt()
         self.pair.to_hub.write(values)
         self._c_writes.inc()
 
     def spoke_from_hub(self):
         """(data, is_new): the latest hub vector; is_new iff the
         write_id advanced since the last read and the snapshot passed
-        payload validation."""
+        payload validation.  Each call is one tick of the chaos step
+        clock."""
+        self.chaos.step_tick()
         win = self.pair.to_spoke
         rc = getattr(win, "read_checked", None)
         if rc is None:
@@ -125,6 +141,31 @@ class Spoke(SPCommunicator):
             state[f"named_warm.{k}.x"] = host(xw)
             state[f"named_warm.{k}.y"] = host(yw)
         return state
+
+    def restore_algo_state(self, state):
+        """Inverse of algo_state: arrays become tensors of the batch's
+        dtype on the optimizer's device; missing keys keep their
+        defaults."""
+        if "last_hub_id" in state:
+            self.last_hub_id = int(state["last_hub_id"])
+        opt = self.opt
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), device=opt.device).to(
+                opt.batch.c.dtype)
+        if "x_warm" in state and hasattr(opt, "_x_warm"):
+            opt._x_warm = dev(state["x_warm"])
+        if "y_warm" in state and hasattr(opt, "_y_warm"):
+            opt._y_warm = dev(state["y_warm"])
+        named = {}
+        for k in state:
+            if k.startswith("named_warm.") and k.endswith(".x"):
+                name = k[len("named_warm."):-len(".x")]
+                yk = f"named_warm.{name}.y"
+                if yk in state:
+                    named[name] = (dev(state[k]), dev(state[yk]))
+        if named and hasattr(opt, "_named_warm"):
+            opt._named_warm.update(named)
 
     def main(self):
         """The threads-mode loop."""
@@ -218,6 +259,13 @@ class _BoundSpoke(Spoke):
         state["got_bound"] = bool(self._got_bound)
         return state
 
+    def restore_algo_state(self, state):
+        super().restore_algo_state(state)
+        if "bound" in state:
+            self.bound = float(state["bound"])
+        if "got_bound" in state:
+            self._got_bound = bool(state["got_bound"])
+
 
 class _SKSpoke(_BoundSpoke):
     """A bound spoke that receives one (S*K,) hub vector."""
@@ -292,6 +340,11 @@ class InnerBoundNonantSpoke(_BoundNonantSpoke):
         if self.best_solution is not None:
             state["best_solution"] = np.asarray(self.best_solution)
         return state
+
+    def restore_algo_state(self, state):
+        super().restore_algo_state(state)
+        if "best_solution" in state:
+            self.best_solution = np.asarray(state["best_solution"])
 
 
 class OuterBoundNonantSpoke(_BoundNonantSpoke):

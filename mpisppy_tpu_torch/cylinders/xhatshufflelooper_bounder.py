@@ -92,3 +92,14 @@ class XhatShuffleInnerBound(InnerBoundNonantSpoke):
         if self._last_nonants is not None:
             state["last_nonants"] = np.asarray(self._last_nonants)
         return state
+
+    def restore_algo_state(self, state):
+        super().restore_algo_state(state)
+        if "cycler_pos" in state:
+            self.cycler._pos = int(state["cycler_pos"])
+        if "cycler_direction" in state:
+            self.cycler._direction = int(state["cycler_direction"])
+        if "cycler_best" in state:
+            self.cycler.best = int(state["cycler_best"])
+        if "last_nonants" in state:
+            self._last_nonants = np.asarray(state["last_nonants"])

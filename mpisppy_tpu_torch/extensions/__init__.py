@@ -1,6 +1,5 @@
-"""PH extensions of the port (mirror of `mpisppy_tpu/extensions`).
-
-Not ported yet: `cross_scen_extension` (it needs the cross-scenario
-cut spoke, ROADMAP.md queue A item 11); constructing it raises."""
+"""PH extensions of the port (mirror of `mpisppy_tpu/extensions`),
+`cross_scen_extension` included (the hub wires it to the
+cross-scenario cut spoke)."""
 
 from .extension import Extension, MultiExtension  # noqa: F401

@@ -2,8 +2,8 @@
 `mpisppy_tpu/extensions/wxbarwriter.py`).
 
 options["W_fname"]: an .npz snapshot written atomically at every
-iteration and at post_everything.  Full run checkpoints
-(`run_checkpoint`) are not ported yet (ROADMAP.md queue A item 6).
+iteration and at post_everything.  Full run checkpoints are
+options["run_checkpoint"] (`resilience/checkpoint.py`).
 """
 
 from __future__ import annotations

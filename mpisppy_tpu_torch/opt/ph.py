@@ -2,8 +2,11 @@
 `mpisppy_tpu/opt/ph.py`).
 
 ph_main runs Iter0 -> iterk_loop -> post_loops and returns
-(conv, Eobj, trivial_bound).  Checkpoint resume is not ported yet
-(`resume_from` raises at construction).
+(conv, Eobj, trivial_bound).  With options["resume_from"] naming an
+existing run checkpoint, the checkpoint replaces Iter0 and the loop
+continues from its iteration; a missing file falls through to a fresh
+start, so a driver may pass the path it writes with
+options["run_checkpoint"] unconditionally.
 """
 
 from __future__ import annotations
@@ -15,7 +18,12 @@ from ..phbase import PHBase
 class PH(PHBase):
     def ph_main(self, finalize=True):
         self.trivial_bound = None
-        trivial = self.Iter0()
+        resume = self.options.get("resume_from")
+        from ..resilience.checkpoint import checkpoint_exists
+        if resume is not None and checkpoint_exists(resume):
+            trivial = self.restore_run_checkpoint(resume)
+        else:
+            trivial = self.Iter0()
         self.iterk_loop()
         if finalize:
             eobj = self.post_loops()

@@ -27,10 +27,12 @@ they may replace `rho`, `lb_eff`/`ub_eff` (`fix_nonants`) or
 current values as arguments.  `options["ph_converger"]` (a class of
 `convergers/`) is polled once per iteration after the hub sync.
 
-Not ported yet (ROADMAP queue A): run checkpoints (`run_checkpoint`,
-`resume_from`), chaos injection and `reshard`.
-Options that would select them raise NotImplementedError
-(spbase._UNPORTED_OPTIONS).
+Crash-resume and fault injection (`resilience/`):
+`options["run_checkpoint"]` names an atomic full-state checkpoint
+written every `options["checkpoint_every"]` iterations (default 1);
+`options["resume_from"]` restores one in place of Iter0 (opt/ph.py);
+`options["chaos"]` arms the injectors, whose hub tick fires after that
+iteration's checkpoint.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from . import global_toc
+from .resilience.chaos import ChaosInjector
 from .ir import ScenarioBatch, SparseSplitA, node_segment_sum
 from .ops.pdhg import round_to_dtype
 from .spopt import SPOpt, _sync
@@ -230,6 +233,9 @@ class PHBase(SPOpt):
         conv_cls = self.options.get("ph_converger")
         if conv_cls is not None:
             self.convobject = conv_cls(self)
+        # deterministic fault injectors (inert unless options["chaos"]
+        # or the MPISPPY_TPU_CHAOS environment variable is set)
+        self._chaos = ChaosInjector.from_options(self.options.get("chaos"))
 
     # -- hook plumbing (reference extensions/extension.py API) ------------
     def _ext(self, hook, *args):
@@ -421,6 +427,26 @@ class PHBase(SPOpt):
                 r.gauge("ph.superstep_eps").set(self._ladder_eps)
         return self.conv
 
+    # -- crash-resume (resilience/checkpoint.py) --------------------------
+    def _maybe_checkpoint(self, k):
+        path = self.options.get("run_checkpoint")
+        if not path:
+            return
+        if k % int(self.options.get("checkpoint_every", 1)) == 0:
+            from .resilience.checkpoint import save_run_checkpoint
+            save_run_checkpoint(path, self)
+
+    def restore_run_checkpoint(self, path):
+        """Install a full run checkpoint (state, bounds, iteration): the
+        Iter0 replacement of a `resume_from=` run.  Returns the trivial
+        bound."""
+        from .resilience.checkpoint import load_run_checkpoint
+        load_run_checkpoint(path, self)
+        global_toc(f"PH resumed from checkpoint {path} at iter "
+                   f"{int(self.state.it)} "
+                   f"(trivial_bound={self.trivial_bound})")
+        return self.trivial_bound
+
     # -- main loop (reference phbase.py:875-979 iterk_loop) ---------------
     def iterk_loop(self):
         max_iters = int(self.options.get("PHIterLimit", 100))
@@ -435,6 +461,10 @@ class PHBase(SPOpt):
                 global_toc(f"PH iter {k:4d} conv={conv:.6e} "
                            f"E[obj]={eobj:.6g}")
             self._ext("enditer")
+            self._maybe_checkpoint(k)
+            # the chaos crash fires after the checkpoint: a run killed
+            # at iteration k resumes from iteration k
+            self._chaos.hub_iter_tick(k)
             if self.spcomm is not None:
                 self.spcomm.sync()
                 if self.spcomm.is_converged():

@@ -27,14 +27,9 @@ import os
 import numpy as np
 import torch
 
-from . import global_toc, not_ported
+from . import global_toc
 from .device import host, resolve_device
 from .ir import ScenarioBatch, node_segment_sum, stack_scenarios
-
-# options whose machinery this slice does not carry, with the ROADMAP.md
-# queue A item that ports it: refusing them beats ignoring them
-_UNPORTED_OPTIONS = {"resume_from": 6, "run_checkpoint": 6, "chaos": 6}
-
 
 class SPBase:
     # algorithms that index A by scenario set this; SPBase then builds
@@ -46,9 +41,6 @@ class SPBase:
                  scenario_creator_kwargs=None, variable_probability=None,
                  batch: ScenarioBatch | None = None, device=None):
         self.options = dict(options or {})
-        for key, item in _UNPORTED_OPTIONS.items():
-            if self.options.get(key) is not None:
-                raise not_ported(f"option {key!r}", item)
         self.all_scenario_names = list(all_scenario_names)
         self.all_nodenames = all_nodenames
         self.scenario_creator = scenario_creator

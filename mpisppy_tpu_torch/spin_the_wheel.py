@@ -1,13 +1,23 @@
 """WheelSpinner — hub-and-spoke orchestration on one device (port of
 `mpisppy_tpu/spin_the_wheel.py`).
 
-Two modes share all algorithm code:
+Three modes share all algorithm code:
 * "interleaved" (the default): after each hub iteration PHHub.sync()
   pushes W and nonants, runs every spoke's `step()` inline and pulls
   the bounds; hub and spokes share one device queue;
 * "threads": each spoke loops its `main()` in a host thread against
   the same windows.  The threads issue their kernels to the same CUDA
-  stream, so their device work runs one after another.
+  stream, so their device work runs one after another;
+* "multiproc": each spoke is its own OS process (`cylinders/proc.py`)
+  over the native seqlock's mmap window files, on the hub's device (a
+  CUDA hub's children each open a context on the card), supervised by
+  `resilience.supervisor.SpokeSupervisor`.  Spoke dicts carry a "proc"
+  key with a declarative batch spec.  The window files and the
+  children's logs live in a temporary workdir, removed after a healthy
+  run unless `keep_workdir`.  The hub waits up to
+  SPOKE_READY_TIMEOUT_S seconds for every child to build its spoke and
+  attach before its first iteration: a child's start-up (torch's
+  import, a context on the card) can outlast a short hub run.
 
 The spokes share the hub's ScenarioBatch, its device and, where the
 opt classes agree on the column scaling, its PreparedBatch: no solve
@@ -21,18 +31,28 @@ Dict schema (that of the JAX package and the `utils/vanilla` factories):
 
 With telemetry on, each spoke records on its own trace row
 ("spoke<i>:<class>"), and a telemetry `dir` receives trace.json (hub
-and spokes merged on one timeline) and metrics.jsonl after the spin.
+and spokes merged on one timeline; a multiproc child writes its own
+trace and metrics files there, and its trace is merged in) and
+metrics.jsonl after the spin.
 
-Not ported yet (ROADMAP.md queue A): `mode="multiproc"` and the native
-window (item 11), with the per-process telemetry files it merges,
-`resume_from` (item 6), and the "device" / "collective" exchange
-backends and `MPMDWheel` (item 13).  Each raises where selected.
+`resume_from=` restores the hub optimizer's PH state and the hub's
+best bounds and incumbent from a run checkpoint
+(`resilience/checkpoint.py`); a missing file means a fresh start.
+`exchange_backend="native"` puts the in-process modes on the native
+seqlock.
+
+Not ported yet (ROADMAP.md queue A item 13): the "device" /
+"collective" exchange backends and `MPMDWheel`, which raise where
+selected.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 import threading
+import time
 
 from . import global_toc, not_ported
 from . import telemetry as _telemetry
@@ -40,25 +60,24 @@ from .cylinders.spcommunicator import _UNPORTED_BACKENDS
 from .device import host
 from .ir import SplitA
 
-MODES = ("interleaved", "threads")
+MODES = ("interleaved", "threads", "multiproc")
+# how long a multiproc hub waits for its children to attach before its
+# first iteration (a child takes seconds to import torch and reach the
+# card)
+SPOKE_READY_TIMEOUT_S = 300.0
 
 
 class WheelSpinner:
     def __init__(self, hub_dict, list_of_spoke_dict=(), mode="interleaved",
                  keep_workdir=False, resume_from=None,
                  exchange_backend=None):
-        if mode == "multiproc":
-            raise not_ported('WheelSpinner mode="multiproc"', 11)
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if keep_workdir:
-            raise not_ported("keep_workdir (multiproc mode's workdir)", 11)
-        if resume_from is not None:
-            raise not_ported("WheelSpinner(resume_from=...)", 6)
         if exchange_backend in _UNPORTED_BACKENDS:
             raise not_ported(f"exchange_backend={exchange_backend!r}",
                              _UNPORTED_BACKENDS[exchange_backend])
-        if exchange_backend not in (None, "auto", "seqlock", "python"):
+        if exchange_backend not in (None, "auto", "seqlock", "python",
+                                    "native"):
             raise ValueError(f"unknown exchange_backend {exchange_backend!r}")
         self._validate(hub_dict, list_of_spoke_dict)
         self.hub_dict = hub_dict
@@ -67,6 +86,21 @@ class WheelSpinner:
         self.exchange_backend = exchange_backend
         self.exchange_backend_used = None
         self.spcomm = None
+        # multiproc mode: keep the window files and logs after the run
+        self.options_keep_workdir = keep_workdir
+        self.workdir = None
+        self.child_info = []      # each child's info file (multiproc)
+        # multiproc: seconds waiting for the children, and of the hub's
+        # own loop after that
+        self.ready_wait_s = self.hub_loop_s = None
+        # crash-resume: the hub optimizer restores its PH state (PH
+        # reads options["resume_from"]), the hub its bounds
+        self.resume_from = resume_from
+        if resume_from is not None:
+            kw = dict(self.hub_dict["opt_kwargs"])
+            kw["options"] = dict(kw.get("options") or {},
+                                 resume_from=resume_from)
+            self.hub_dict = dict(self.hub_dict, opt_kwargs=kw)
 
     @staticmethod
     def _validate(hub_dict, spoke_dicts):
@@ -78,7 +112,17 @@ class WheelSpinner:
                 if k not in sd:
                     raise RuntimeError(f"spoke_dict missing key {k}")
 
+    def _restore_hub_bounds(self, hub):
+        from .resilience.checkpoint import checkpoint_exists, restore_hub
+        if self.resume_from is not None \
+                and checkpoint_exists(self.resume_from):
+            restore_hub(self.resume_from, hub)
+            global_toc(f"WheelSpinner: hub bounds restored from "
+                       f"{self.resume_from}")
+
     def spin(self):
+        if self.mode == "multiproc":
+            return self._spin_multiproc()
         hd = self.hub_dict
         global_toc("WheelSpinner: constructing hub optimizer")
         hub_opt = hd["opt_class"](**hd["opt_kwargs"])
@@ -110,10 +154,13 @@ class WheelSpinner:
         # on one device "auto" (and "seqlock") resolve to the host
         # seqlock, as in the JAX package; a window_backend in the hub
         # options wins
-        hub_options.setdefault("window_backend", "python")
+        hub_options.setdefault(
+            "window_backend",
+            "native" if self.exchange_backend == "native" else "python")
         self.exchange_backend_used = hub_options["window_backend"]
         hub = hd["hub_class"](hub_opt, spokes, options=hub_options)
         hub.setup_hub()
+        self._restore_hub_bounds(hub)
         self.spcomm = hub
 
         if self.mode == "threads" and spokes:
@@ -137,12 +184,13 @@ class WheelSpinner:
         self._flush_telemetry()
         return self
 
-    def _flush_telemetry(self):
-        """Write trace.json (hub and spoke rows merged on one timeline)
-        and metrics.jsonl into the configured telemetry dir; a no-op
-        when telemetry is off or has no dir."""
+    def _flush_telemetry(self, extra_trace_files=()):
+        """Write trace.json (hub and spoke rows merged on one timeline,
+        with the given per-process trace files) and metrics.jsonl into
+        the configured telemetry dir; a no-op when telemetry is off or
+        has no dir."""
         tel = getattr(self.spcomm, "telemetry", None) or _telemetry.get()
-        path = tel.flush()
+        path = tel.flush(extra_trace_files=extra_trace_files)
         if path is not None:
             global_toc(f"WheelSpinner: telemetry written to "
                        f"{os.path.dirname(path)}")
@@ -180,6 +228,150 @@ class WheelSpinner:
                         f"spoke did not exit within {join_timeout:.0f}s "
                         "of the kill signal"))
         hub._drain_failures()
+
+    def _proc_spec(self, i, sd, hub_opt, prefix, send, recv):
+        """The declarative spec from which spoke process i rebuilds its
+        spoke (cylinders/proc.py)."""
+        b = hub_opt.batch
+        ocls, scls, okw = sd["opt_class"], sd["spoke_class"], sd["opt_kwargs"]
+        spec = {
+            # the child pads to the hub's scenario count, or the W /
+            # nonant window vectors would reshape differently
+            "batch": dict(sd["proc"]["batch"], pad_to=b.num_scens),
+            "opt_class": f"{ocls.__module__}:{ocls.__name__}",
+            "spoke_class": f"{scls.__module__}:{scls.__name__}",
+            "opt_options": okw.get("options", {}),
+            "spoke_options": sd.get("spoke_kwargs", {}).get("options"),
+            "scenario_names": list(okw["all_scenario_names"]),
+            "device": str(hub_opt.device),
+            "windows": {"prefix": prefix, "hub_length": recv,
+                        "spoke_length": send},
+        }
+        # each child records into its own trace and metrics files (its
+        # own pid: its own trace row), merged by the hub after shutdown
+        tel = _telemetry.get()
+        if tel.enabled and tel.out_dir:
+            # absolute: a child runs in the workdir
+            out_dir = os.path.abspath(tel.out_dir)
+            os.makedirs(out_dir, exist_ok=True)
+            spec["telemetry"] = {
+                "enabled": True,
+                "phase_timing": tel.phase_timing,
+                "main_label": f"spoke{i}:{scls.__name__}",
+                "trace_path": os.path.join(
+                    out_dir, f"trace_spoke{i}.json"),
+                "metrics_path": os.path.join(
+                    out_dir, f"metrics_spoke{i}.jsonl"),
+            }
+        return spec
+
+    def _spin_multiproc(self):
+        """Hub and spokes as separate OS processes over the native mmap
+        seqlock: the hub in this process, each spoke a child on the
+        hub's device, supervised (dead and hung children restarted,
+        then pruned once their restart budget is spent)."""
+        from .cylinders.proc import SpokeHandle, prebuild
+        from .resilience.supervisor import SpokeSupervisor
+
+        hd = self.hub_dict
+        self.workdir = workdir = tempfile.mkdtemp(
+            prefix="mpisppy_tpu_torch_wheel_")
+        global_toc(f"WheelSpinner[multiproc]: workdir {workdir} "
+                   "(window files and per-spoke logs)")
+        hub_opt = hd["opt_class"](**hd["opt_kwargs"])
+        # the children load these; building them here keeps every child
+        # from running the compilers itself
+        prebuild(hub_opt.device)
+
+        handles, specs = [], []
+        for i, sd in enumerate(self.list_of_spoke_dict):
+            if "proc" not in sd:
+                raise RuntimeError(
+                    "multiproc mode needs spoke_dict['proc'] with a "
+                    "declarative batch spec")
+            scls = sd["spoke_class"]
+            # the spoke-side lengths (cylinders/spoke.py), computed on
+            # the hub's batch: both sides build the same model
+            b = hub_opt.batch
+            recv = b.num_scens * b.num_nonants
+            send = (2 * b.num_nonants + 1
+                    if getattr(scls, "provides_cuts", False) else 1)
+            prefix = f"{workdir}/pair{i}"
+            handles.append(SpokeHandle(scls, send, recv,
+                                       sol_path=prefix + ".sol.npy"))
+            specs.append(self._proc_spec(i, sd, hub_opt, prefix, send,
+                                         recv))
+
+        hub = hd["hub_class"](
+            hub_opt, handles,
+            options=dict(hd.get("hub_kwargs", {}).get("options") or {},
+                         window_backend="native",
+                         window_path_prefix=f"{workdir}/pair"))
+        self.exchange_backend_used = "native"
+        hub.setup_hub()       # creates and resets the window files
+        self._restore_hub_bounds(hub)
+        self.spcomm = hub
+
+        sup = SpokeSupervisor(hub, specs, workdir, options=hub.options)
+        hub.supervisor = sup
+        sup.start()
+        hub.drive_spokes_inline = False
+        ok = False
+        try:
+            t0 = time.monotonic()
+            self._wait_ready(hub, handles, sup, SPOKE_READY_TIMEOUT_S)
+            t1 = time.monotonic()
+            hub.main()
+            self.ready_wait_s = t1 - t0
+            self.hub_loop_s = time.monotonic() - t1
+            sup.poll(force=True)   # deaths after the last sync
+            hub.send_terminate()
+            sup.shutdown(timeout=float(hub.options.get(
+                "shutdown_join_timeout", 120.0)))
+            ok = True
+        finally:
+            sup.kill_all()
+        hub.spoke_exit_reports = sup.exit_reports
+        hub.hub_finalize()
+        # a spoke process writes its solution file at its finalize,
+        # after the hub read the matching bound: pair them now
+        for i in hub.innerbound_idx:
+            data, wid = hub.pairs[i].to_hub.read()
+            sol = handles[i].best_solution
+            if (wid > 0 and sol is not None
+                    and float(data[0]) == hub.BestInnerBound):
+                hub.best_nonant_solution = sol
+        self.child_info = [h.info for h in handles]
+        if ok and not self.options_keep_workdir and not sup.exit_reports:
+            # window files and logs are kept when a spoke died or hung
+            # (the logs are the post-mortem) or on request
+            for pair in hub.pairs:
+                pair.to_spoke.close()
+                pair.to_hub.close()
+            shutil.rmtree(workdir, ignore_errors=True)
+        elif ok and sup.exit_reports:
+            global_toc(f"WheelSpinner[multiproc]: spoke failure logs "
+                       f"kept in {workdir}")
+        child_traces = [s["telemetry"]["trace_path"] for s in specs
+                        if "telemetry" in s
+                        and os.path.exists(s["telemetry"]["trace_path"])]
+        self._flush_telemetry(extra_trace_files=child_traces)
+        return self
+
+    @staticmethod
+    def _wait_ready(hub, handles, sup, timeout):
+        """Wait until every live child has attached, or `timeout`."""
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            sup.poll(force=True)
+            if all(h.ready or sup.state[i] not in ("live", "waiting")
+                   for i, h in enumerate(handles)):
+                global_toc(f"WheelSpinner[multiproc]: spokes ready after "
+                           f"{time.monotonic() - t0:.1f}s")
+                return
+            time.sleep(0.05)
+        global_toc(f"WARNING: not every spoke was ready within "
+                   f"{timeout:.0f}s; the hub starts anyway")
 
     # -- results ----------------------------------------------------------
     @property

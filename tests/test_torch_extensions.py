@@ -535,19 +535,28 @@ def test_wxbar_extensions_round_trip(tmp_path):
     assert int(z["it"]) == 2
 
 
-# ---- what is still refused -------------------------------------------------
+# ---- the cross-scenario parts (once refused, queue A item 11) ------------
 
 def test_cross_scenario_parts_refuse():
+    """The parts once refused run: the capacity and its layout, the
+    extension's check of the eta column, and its seeded wait-and-see
+    cut, which repairs the blended Iter0's trivial bound (held to the
+    JAX package in tests/test_torch_cross_scen.py)."""
     from mpisppy_tpu_torch.extensions.cross_scen_extension import (
         CrossScenarioExtension)
     from mpisppy_tpu_torch.utils import cross_scenario
     b = farmer.build_batch(3, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 11$"):
+    with pytest.raises(RuntimeError, match="eta column missing"):
         PH(OPTS, NAMES, batch=b, device="cpu",
            extensions=CrossScenarioExtension)
-    for fn in (cross_scenario.add_cross_scenario_capacity,
-               cross_scenario.cross_meta):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue A item 11$"):
-            fn(b)
+    assert cross_scenario.cross_meta(b) is None
+    ab = cross_scenario.add_cross_scenario_capacity(b, max_cuts=5)
+    assert cross_scenario.cross_meta(ab) == {
+        "first_cut_row": b.num_rows, "max_cuts": 5, "n_cuts": 0,
+        "eta_col": b.num_vars}
+    ph = PH(OPTS, NAMES, batch=ab, device="cpu",
+            extensions=CrossScenarioExtension)
+    ph.Iter0()
+    assert ph.extobject.n_cuts == 1
+    assert cross_scenario.cross_meta(ph.batch)["n_cuts"] == 1
+    assert abs(ph.trivial_bound - -115405.55) < 5.0

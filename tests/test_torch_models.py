@@ -274,8 +274,9 @@ def _cfg():
                                   "aircondB.amalgamator",
                                   "acopf3.soc"])
 def test_still_refused_name_their_item(case):
-    """What is still refused names its item; the item-10 parts ported
-    since (the MIP EF, aircondB) now construct or run."""
+    """What is still refused names its item; the parts ported since
+    (the MIP EF, aircondB, acopf3's SOC relaxation) now construct or
+    run."""
     if case == "opt.mip.ExtensiveFormMIP":
         # usar's integer model, the MIP EF's first user in the corpus
         from mpisppy_tpu_torch.models import usar
@@ -294,15 +295,19 @@ def test_still_refused_name_their_item(case):
         am.run()
         assert am.ef.batch.num_scens == 3
         return
-    item = {"aircond.scenario_source": 12, "acopf3.soc": 9}[case]
-    match = f"ROADMAP.md queue A item {item}$"
-    with pytest.raises(NotImplementedError, match=match):
-        if case == "aircond.scenario_source":
-            aircond.scenario_source(6, {"branching_factors": "3,2"})
-        else:
-            acopf3.build_soc_batch((2, 2), device="cpu")
     if case == "acopf3.soc":
-        for fn in (acopf3.soc_violation, acopf3.add_soc_cuts,
-                   acopf3.soc_refine):
-            with pytest.raises(NotImplementedError, match=match):
-                fn(None, None)
+        # the SOC relaxation (queue A item 9's residual) is ported: the
+        # builder, the violation and one round of cuts run (held to
+        # the JAX package in tests/test_torch_soc.py)
+        b = acopf3.build_soc_batch((2, 2), device="cpu")
+        assert b.model_meta["soc_cut_slots"] == 6
+        x = b.ub * 0.5
+        v = acopf3.soc_violation(b, x)
+        assert v.shape == (4, 3, 6) and np.all(v[b.model_meta[
+            "soc_alive"] == 0] == 0.0)
+        b2, mv, n = acopf3.add_soc_cuts(b, x, 0)
+        assert n > 0 and mv == v.max() and b2.A.shape == b.A.shape
+        return
+    match = "ROADMAP.md queue A item 12$"
+    with pytest.raises(NotImplementedError, match=match):
+        aircond.scenario_source(6, {"branching_factors": "3,2"})

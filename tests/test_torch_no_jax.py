@@ -15,11 +15,16 @@
   cylinders and the bundle modules, runs the Schur-complement IPM and
   PH on bundles, and finds no `jax` and no `mpisppy_tpu.*` module
   loaded.
+* A spoke process (`python -m mpisppy_tpu_torch.cylinders.proc`, as
+  multiproc mode spawns it) loads no `jax` and no `mpisppy_tpu.*`
+  module either, and the spec resolver refuses a module path outside
+  the port.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -54,7 +59,7 @@ def test_ast_no_jax_or_jax_package_imports():
                if p.parent != ROOT}
     assert {"cylinders", "resilience", "utils", "ops", "opt",
             "models", "telemetry", "extensions", "convergers",
-            "fwph"} <= scanned
+            "fwph", "runtime"} <= scanned
     assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
     assert ROOT / "mpisppy_tpu_torch" / "log.py" in files
     assert {p.name for p in files if p.parent.name == "telemetry"} == {
@@ -230,10 +235,24 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
 
 
 def test_unported_options_refuse():
+    """The options once refused (queue A item 6) now work:
+    run_checkpoint writes, resume_from restores (a missing file starts
+    fresh), chaos arms the injector."""
+    import tempfile
     b = farmer.build_batch(3, device="cpu")
-    for key in ("resume_from", "run_checkpoint", "chaos"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PH({key: "x"}, ["s0", "s1", "s2"], batch=b, device="cpu")
+    ck = os.path.join(tempfile.mkdtemp(), "run")
+    ph = PH({"PHIterLimit": 1, "run_checkpoint": ck,
+             "resume_from": ck + "_absent",
+             "chaos": {"crash_at_iter": 99}}, ["s0", "s1", "s2"],
+            batch=b, device="cpu")
+    assert ph._chaos.active
+    ph.ph_main(finalize=False)
+    assert os.path.exists(ck + ".npz")
+    r = PH({"PHIterLimit": 1, "resume_from": ck}, ["s0", "s1", "s2"],
+           batch=b, device="cpu")
+    r.ph_main(finalize=False)
+    assert int(r.state.it) == 1
+    np.testing.assert_array_equal(r.state.W.numpy(), ph.state.W.numpy())
     # ph_converger is ported: the option builds the converger
     from mpisppy_tpu_torch.convergers.norm_rho_converger import (
         NormRhoConverger)
@@ -252,3 +271,40 @@ def test_unported_options_refuse():
     # is required
     with pytest.raises(ValueError, match="batch or a scenario_creator"):
         PH({}, ["s0", "s1", "s2"], device="cpu")
+
+
+def test_spoke_process_loads_no_jax(tmp_path):
+    """A spoke process, spawned as multiproc mode spawns it, attaches
+    to its windows, sees the kill signal, ends cleanly and reports its
+    device and the forbidden modules it loaded (none)."""
+    from mpisppy_tpu_torch.cylinders import proc
+    from mpisppy_tpu_torch.cylinders.spcommunicator import WindowPair
+    prefix = str(tmp_path / "pair0")
+    pair = WindowPair(9, 1, backend="native", path_prefix=prefix)
+    pair.to_spoke.send_kill()
+    spec = {"batch": {"module": "mpisppy_tpu_torch.models.farmer",
+                      "builder": "build_batch", "kwargs": {"num_scens": 3}},
+            "opt_class": "mpisppy_tpu_torch.utils.xhat_eval:Xhat_Eval",
+            "spoke_class": "mpisppy_tpu_torch.cylinders."
+                           "xhatshufflelooper_bounder:XhatShuffleInnerBound",
+            "scenario_names": ["s0", "s1", "s2"], "device": "cpu",
+            "windows": {"prefix": prefix, "hub_length": 9,
+                        "spoke_length": 1}}
+    p = proc.spawn_spoke(spec, str(tmp_path), "0")
+    assert p.wait(timeout=120) == 0, open(p.log_path).read()
+    info = json.load(open(prefix + ".info.json"))
+    assert info == {"device": "cpu", "pid": p.pid,
+                    "forbidden_modules": [], "kernel_launches": []}
+    # the spec resolver refuses a path outside the port
+    for path in ("mpisppy_tpu.models.farmer:build_batch",
+                 "jax.numpy:zeros", "mpisppy_tpu_torchx.m:f"):
+        with pytest.raises(ValueError, match="outside mpisppy_tpu_torch"):
+            proc._resolve(path)
+    bad = dict(spec, batch=dict(spec["batch"],
+                                module="mpisppy_tpu.models.farmer"))
+    spec_file = tmp_path / "bad.json"
+    spec_file.write_text(json.dumps(bad))
+    with pytest.raises(ValueError, match="outside mpisppy_tpu_torch"):
+        proc.run_spoke_from_spec(str(spec_file))
+    pair.to_spoke.close()
+    pair.to_hub.close()

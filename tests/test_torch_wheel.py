@@ -30,6 +30,7 @@
   parts work.
 """
 
+import os
 import random
 import sys
 import threading
@@ -695,30 +696,70 @@ def _cfg(**kv):
 
 
 UNPORTED = {
-    "mode_multiproc": (lambda: WheelSpinner(_hub_dict(), mode="multiproc"),
-                       11),
-    "keep_workdir": (lambda: WheelSpinner(_hub_dict(), keep_workdir=True),
-                     11),
-    "resume_from": (lambda: WheelSpinner(_hub_dict(), resume_from="x.npz"),
-                    6),
-    "exchange_native": (lambda: WheelSpinner(
-        _hub_dict(), exchange_backend="native"), 11),
     "exchange_device": (lambda: WheelSpinner(
         _hub_dict(), exchange_backend="device"), 13),
     "exchange_collective": (lambda: WheelSpinner(
         _hub_dict(), exchange_backend="collective"), 13),
-    "window_backend_native": (lambda: WheelSpinner(
-        _hub_dict(window_backend="native"), [_spoke_dict()]).spin(), 11),
     "window_backend_device": (lambda: spc.WindowPair(
         3, 1, backend="device"), 13),
     "window_backend_collective": (lambda: spc.WindowPair(
         3, 1, backend="collective"), 13),
-    "window_path_prefix": (lambda: WheelSpinner(
-        _hub_dict(window_path_prefix="/tmp/w"), [_spoke_dict()]).spin(),
-        11),
-    "spoke_chaos": (lambda: WheelSpinner(
-        _hub_dict(), [_spoke_dict(chaos={"crash_at_step": 1})]).spin(), 6),
 }
+
+
+def _multiproc(keep):
+    """A hub-only multiproc spin (no spoke process): the native windows,
+    the workdir kept or removed."""
+    import shutil
+    ws = WheelSpinner(_hub_dict(), mode="multiproc",
+                      keep_workdir=keep).spin()
+    kept = os.path.isdir(ws.workdir)
+    shutil.rmtree(ws.workdir, ignore_errors=True)
+    return ws.exchange_backend_used == "native" and kept == keep
+
+
+def _native_spin(**kw):
+    """A farmer-3 wheel with a Lagrangian spoke on the native seqlock;
+    True iff its windows are native ones and it bounded the run."""
+    from mpisppy_tpu_torch.runtime import NativeWindow
+    ws = WheelSpinner(_hub_dict(**kw.pop("hub", {})), [_spoke_dict()],
+                      **kw).spin()
+    pair = ws.spcomm.pairs[0]
+    return (isinstance(pair.to_hub, NativeWindow)
+            and isinstance(pair.to_spoke, NativeWindow)
+            and bool(np.isfinite(ws.BestOuterBound)))
+
+
+def _window_files():
+    """window_path_prefix on the native backend: the pair's windows are
+    files under the prefix."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp()
+    try:
+        ok = _native_spin(hub={"window_backend": "native",
+                               "window_path_prefix": f"{d}/w"})
+        return ok and sorted(os.listdir(d)) == ["w0.to_hub", "w0.to_spoke"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _chaos_pruned():
+    """A spoke crashed by chaos at its first step is pruned and the
+    wheel ends on the hub's own bounds."""
+    ws = WheelSpinner(_hub_dict(), [_spoke_dict(
+        chaos={"crash_at_step": 1})]).spin()
+    (name, msg), = ws.spcomm.failed_spokes
+    return (name == "LagrangianOuterBound"
+            and "injected spoke crash" in msg
+            and bool(np.isfinite(ws.BestOuterBound)))
+
+
+def _resume_missing():
+    """resume_from a missing checkpoint: a fresh start."""
+    ws = WheelSpinner(_hub_dict(), resume_from="absent_run.ckpt").spin()
+    return ws.spcomm.opt.options["resume_from"] == "absent_run.ckpt" \
+        and ws.spcomm.current_iteration() == 1
 
 
 def _telemetry_spin(hub_opts, spoke_opts):
@@ -770,9 +811,17 @@ def _spoke_selected(flag, spoke_cls, opt_cls):
     return d["spoke_class"] is spoke_cls and d["opt_class"] is opt_cls
 
 
-# parts that raised until ported (ROADMAP.md queue A items 8, 5, 7, 9
-# and 10): each case now checks that the part works
+# parts that raised until ported (ROADMAP.md queue A items 8, 5, 7, 9,
+# 10, 11 and 6): each case now checks that the part works
 PORTED = {
+    "mode_multiproc": lambda: _multiproc(keep=False),
+    "keep_workdir": lambda: _multiproc(keep=True),
+    "resume_from": _resume_missing,
+    "exchange_native": lambda: _native_spin(exchange_backend="native"),
+    "window_backend_native": lambda: _native_spin(
+        hub={"window_backend": "native"}),
+    "window_path_prefix": _window_files,
+    "spoke_chaos": _chaos_pruned,
     "aph_hub_class": lambda: _hub_of(hub.APHHub, APH, {}),
     "lshaped_hub_class": lambda: _hub_of(hub.LShapedHub, LShapedMethod,
                                          {"max_iter": 2}),
