@@ -198,17 +198,36 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
               runs (they must agree to 1e-9), one crashed by chaos after
               iteration 4's checkpoint, its resume (W, x̄ and conv equal
               the uninterrupted run's to 1e-9)
+ 19. stream   bench.py's farmer_stream row: StreamingPH over the S = 10^6
+              farmer universe (blocks of 256 built on the host, copied
+              to the card on a stream of their own), BM, f32, to its
+              certified CI, held to the JAX package's certify trajectory
+              (STREAM_WITNESS); device memory at one block's scale; the
+              idle share over two supersteps; the copies' ordering;
+              a stream checkpoint resumed after a chaos crash (f64,
+              1e-9 against the uninterrupted run)
+ 20. shard    bench.py's farmer_shard row: the universe (S = 4,096)
+              exported in shards of 64, StreamingPH through ShardSource
+              (readahead depth 4) to its CI, then the degraded rerun
+              under the four storage chaos modes (two shards
+              quarantined, the debit on the CI) and a corpus past its
+              quarantine budget failing hard
+ 21. ci       zhat4xhat and MMWConfidenceIntervals on farmer, each
+              sample's EF optimum and z(xhat) against HiGHS, the
+              intervals covering HiGHS's values
 The kernel phase also holds the kernel at the new paths' shapes
-against its plain version (NEW_PATH_KERNEL_CASES): wheel_row's split
-prep (100, 7, 12), the cross-scenario hub's augmented batch (100, 47,
-13), the SOC batch.
+against its plain version (NEW_PATH_KERNEL_CASES): the stream block
+(256, 7, 12) split, wheel_row's split prep (100, 7, 12), the
+cross-scenario hub's augmented batch (100, 47, 13), the SOC batch.
 The corpus phase, the algorithms sub-runs of ALG_CHILD (line
-`algorithms`), soc and cross_scen run in a second process on the same
+`algorithms`), soc, cross_scen and stream run in a second
+process on the same
 card (this script with SECOND_PROCESS_FLAG), started when true_size
 ends, beside the uc, wheel and driver phases, the algorithms sub-runs
 of ALG_MAIN (line `algorithms_main`), wheel_multiproc, checkpoint,
-compact, the uc fallback pass, sslp and the golden of the main process
-(the last four ran in the second process until soc and
+compact, the uc fallback pass, sslp, the golden, ci and shard of the
+main process (compact, the uc fallback pass, sslp and the golden ran in the
+second process until soc and
 cross_scen joined it); its lines are copied into this output when it ends, the
 last one `child` with its wall.
 Then the kernels line (each entry with its launches in `wheel_split`,
@@ -566,18 +585,65 @@ CKPT_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 8, "convthresh": 0.0,
              "pdhg_eps": 1e-7, "pdhg_max_iters": 20000}
 CKPT_CRASH_AT = 4
 CKPT_PATH = os.path.join("build", "checkpoint", "run.ckpt")
-# the kernel at the shapes the soc, cross_scen, wheel_multiproc and
-# checkpoint paths put on it: (row, form, the
+# the kernel at the shapes the stream, shard, soc, cross_scen,
+# wheel_multiproc and checkpoint paths put on it: (row, form, the
 # source of A expected in f32 and f64, the path whose launches it
 # carries).  wheel_row's split prep (100, 7, 12) runs in the multiproc
 # hub and children (f32) and in the checkpoint runs (f64); the
-# cross-scenario hub's augmented dense batch (100, 47, 13); acopf3's SOC
+# cross-scenario hub's augmented dense batch (100, 47, 13); the stream
+# row's blocks (256, 7, 12), split-native, f32, which are also the shape
+# of its Iter0 sweep and of the gap estimator's fixed-candidate solves
+# at the sample size 256, the largest the estimator draws in these runs
+# (the stream resume check runs it in f64); acopf3's SOC
 # batch (4, 814, 600), qs != 0, in the SOC PH (f64; A resident at C=16
 # in f32, streamed in f64)
 NEW_PATH_KERNEL_CASES = (
+    ("split_stream_block", "split", ("registers", "registers")),
     ("split_wheel_row", "split", ("registers", "registers")),
     ("dense_cross_scen", "dense", ("registers", "registers")),
     ("qs_soc_ieee14", "dense", ("resident", "streamed")))
+# statistics and streaming: bench.py's farmer_stream row
+# (bench.py:803-880), S and the block the bench's, f32 on the card; only
+# the superstep cap (the bench's 60) may be cut for time.  The stream
+# resume check runs the same universe in f64 for STREAM_RESUME_ITERS
+# supersteps, checkpointed at STREAM_RESUME_AT and crashed by chaos
+# after it.  tests/stream_witness.py runs these settings in either
+# package and records the JAX package's certify trajectory in
+# STREAM_WITNESS.
+STREAM_S = 1_000_000
+STREAM_BLOCK = 256
+STREAM_ITERS = 60
+STREAM_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": STREAM_ITERS,
+               "solver_eps": 1e-5, "superstep_eps": 1e-4,
+               "pdhg_max_iters": 30000, "stream_block_size": STREAM_BLOCK,
+               "stream_check_every": 5, "stopping_criterion": "BM",
+               "BM_h": 2.0, "BM_hprime": 0.35, "BM_eps": 200.0,
+               "crops_multiplier": 1, "dtype": "float32"}
+STREAM_SOURCE_CFG = {"crops_multiplier": 1, "split": True,
+                     "dtype": "float32"}
+STREAM_RESUME_ITERS = 10
+STREAM_RESUME_AT = 5
+STREAM_WITNESS = os.path.join("tests", "stream_witness_jax.json")
+STREAM_CKPT = os.path.join("build", "stream", "stream.ckpt")
+# bench.py's farmer_shard row (bench.py:895-1033): the farmer universe
+# exported in shards, in f32 as the stream row, read at readahead depth
+# 4, then the degraded rerun under the four storage chaos modes on the
+# last two shards of its Iter0 sweep.  The bench sweeps n0 = 4 blocks
+# there (and so draws its estimator sample at 1,024); here the sweep is
+# one block, n0 = 256, which puts the faults on shards 2 and 3: the
+# same quarantined mass, a quarter of the estimator's work (cut for
+# time: 140 s of the card's at 1,024 in f64)
+SHARD_S = 4096
+SHARD_N0 = STREAM_BLOCK
+SHARD_WIDTH = 64
+SHARD_DEPTH = 4
+SHARD_DIR = os.path.join("build", "farmer_shard")
+# the CI drivers at the JAX tests' sizes (tests/test_confidence_
+# intervals.py): farmer's optimum as the candidate
+CI_OPTS = {"solver_eps": 1e-7}
+CI_XHAT = (170.0, 80.0, 250.0)
+CI_ZHAT = {"num_samples": 4, "sample_size": 8, "seed": 300}
+CI_MMW = {"num_batches": 3, "batch_size": 10, "start": 1000}
 # values the second process's phases share (the aircond HiGHS optimum)
 SHARED = {}
 # the corpus phase, the ALG_CHILD algorithms, soc and cross_scen run in
@@ -2937,6 +3003,9 @@ def new_path_kernel_inputs(case, dtype):
     npdt = np.float32 if dtype == torch.float32 else np.float64
     if case == "split_wheel_row":
         return solver_space_inputs(dtype, split=True, scens=WHEEL_S, cm=1)
+    if case == "split_stream_block":
+        return solver_space_inputs(dtype, split=True, scens=STREAM_BLOCK,
+                                   cm=1)
     if case == "dense_cross_scen":
         return batch_space_inputs(add_cross_scenario_capacity(
             farmer.build_batch(WHEEL_S, dtype=npdt),
@@ -4185,6 +4254,443 @@ def checkpoint_phase():
     return out
 
 
+def stream_order_check(n_blocks=3, width=4096):
+    """The stream's copy to the card is ordered before the solve that
+    reads it: large host-built blocks (farmer cm=1, split-native, f32)
+    go through ScenarioStream with a BlockTransfer, and a reduction on
+    the consumer's stream reads each block as soon as next_block returns
+    it; it must equal the same reduction of the block rebuilt on the
+    host.  A block read before its copy ends would differ."""
+    import torch
+
+    from mpisppy_tpu_torch.device import resolve_device
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.streaming import BlockTransfer, ScenarioStream
+    from mpisppy_tpu_torch.streaming.stream import batch_tensors
+    src = farmer.scenario_source(STREAM_S, STREAM_SOURCE_CFG)
+    tr = BlockTransfer(resolve_device(None))
+    rng = np.random.default_rng(1)
+    starts = rng.choice(STREAM_S - width, n_blocks, replace=False)
+    bad = []
+    t = time.time()
+    with ScenarioStream(src, transfer=tr) as st:
+        for a in starts:
+            st.prefetch(np.arange(a, a + width))
+        for a in starts:
+            idx, blk = st.next_block()
+            got = [float(blk.A.vals.double().sum()),
+                   float(blk.row_lo.double().nan_to_num(0.0, 0.0,
+                                                        0.0).sum()),
+                   float(blk.c.double().sum())]
+            ref = src.block(idx)
+            want = [float(ref.A.vals.double().sum()),
+                    float(ref.row_lo.double().nan_to_num(0.0, 0.0,
+                                                         0.0).sum()),
+                    float(ref.c.double().sum())]
+            check(blk.c.device.type == "cuda", "a streamed block is not "
+                  "on the card")
+            if got != want:
+                bad.append({"start": int(a), "got": got, "want": want})
+        wait = st.stats()["prefetch_wait_seconds"]
+    check(not bad, f"streamed blocks read before their copy ended: {bad}")
+    check(tr.copies == n_blocks, f"{tr.copies} copies for {n_blocks} "
+          "blocks")
+    return {"blocks": n_blocks, "block_scens": width,
+            "block_bytes": int(sum(
+                t.numel() * t.element_size()
+                for t in batch_tensors(src.block(np.arange(width))))),
+            "copies_on_own_stream": tr.copies,
+            "prefetch_wait_seconds": wait, "s": time.time() - t}
+
+
+def _stream_run(opts, src, module, extra=None):
+    """One StreamingPH run on the card; (sph, wall seconds, the chaos
+    error it crashed with or None)."""
+    import torch
+
+    from mpisppy_tpu_torch.resilience.chaos import ChaosError
+    from mpisppy_tpu_torch.streaming.streaming_ph import StreamingPH
+    sph = StreamingPH(dict(opts, **(extra or {})), src, module=module)
+    torch.cuda.synchronize()
+    t = time.time()
+    try:
+        sph.stream_main(finalize=False)
+        crashed = None
+    except ChaosError as e:
+        crashed = str(e)
+    torch.cuda.synchronize()
+    return sph, time.time() - t, crashed
+
+
+def stream_resume_check():
+    """The stream checkpoint on the card: the stream row's universe in
+    f64 for STREAM_RESUME_ITERS supersteps (no certification), twice
+    uninterrupted, once crashed by chaos after superstep
+    STREAM_RESUME_AT's checkpoint, and resumed.  The sampler state and
+    the pending block must equal the uninterrupted run's, and W_host,
+    x̄ and conv agree with it to 1e-9."""
+    from mpisppy_tpu_torch.models import farmer
+    os.makedirs(os.path.dirname(STREAM_CKPT), exist_ok=True)
+    for f in (STREAM_CKPT + ".npz", STREAM_CKPT + ".npz.tmp"):
+        if os.path.exists(f):
+            os.remove(f)
+    cfg = dict(STREAM_SOURCE_CFG, dtype="float64")
+    opts = dict(STREAM_OPTS, dtype="float64",
+                PHIterLimit=STREAM_RESUME_ITERS)
+
+    def run(extra=None):
+        return _stream_run(opts, farmer.scenario_source(STREAM_S, cfg),
+                           None, extra)
+
+    def diff(p, q):
+        return {"W_host": float(np.abs(p.W_host - q.W_host).max()),
+                "xbar_host": float(np.abs(p.xbar_host
+                                          - q.xbar_host).max()),
+                "conv": abs(p.conv - q.conv)}
+
+    def close(p, q):
+        return all(np.allclose(getattr(p, f), getattr(q, f), rtol=1e-9,
+                               atol=1e-9) for f in ("W_host", "xbar_host")) \
+            and abs(p.conv - q.conv) <= 1e-9 * max(1.0, abs(q.conv))
+
+    a, a_s, _ = run()
+    a2, a2_s, _ = run()
+    check(close(a2, a), f"two uninterrupted stream runs differ: "
+          f"{diff(a2, a)}")
+    b, b_s, crashed = run({"run_checkpoint": STREAM_CKPT,
+                           "chaos": {"crash_at_iter": STREAM_RESUME_AT}})
+    check(crashed is not None and f"iter {STREAM_RESUME_AT}" in crashed,
+          f"the chaos crash did not fire: {crashed}")
+    saved_it = int(np.load(STREAM_CKPT + ".npz")["it"])
+    check(saved_it == STREAM_RESUME_AT,
+          f"the stream checkpoint holds it={saved_it}")
+    c, c_s, _ = run({"resume_from": STREAM_CKPT})
+    check(int(c.state.it) == int(a.state.it) == STREAM_RESUME_ITERS,
+          f"the resumed stream run ended at it={int(c.state.it)}")
+    check(c.sampler.state() == a.sampler.state(),
+          "the resumed run's sampler state differs")
+    check(np.array_equal(c._pending_indices, a._pending_indices),
+          "the resumed run's pending block differs")
+    check(close(c, a), f"the resumed stream run differs: {diff(c, a)}")
+    return {"dtype": "float64", "supersteps": STREAM_RESUME_ITERS,
+            "crash_at_iter": STREAM_RESUME_AT,
+            "uninterrupted_s": [a_s, a2_s], "crashed_s": b_s,
+            "resumed_s": c_s, "max_abs_diff_two_uninterrupted":
+                diff(a2, a),
+            "two_uninterrupted_bitwise_equal": max(
+                diff(a2, a).values()) == 0.0,
+            "max_abs_diff_resumed": diff(c, a), "tol": 1e-9,
+            "sampler_state_equal": True, "pending_indices_equal": True,
+            "checkpoint_bytes": os.path.getsize(STREAM_CKPT + ".npz")}
+
+
+def stream_phase():
+    """bench.py's farmer_stream row on the card: StreamingPH over the
+    S = 1,000,000 farmer universe through farmer.scenario_source, blocks
+    of 256, BM, f32, to its certified CI; held to the JAX package's
+    certify trajectory at the same settings (STREAM_WITNESS, recorded
+    by tests/stream_witness.py on the CPU): the same verdict at the same
+    superstep, G and s within 1% (two f32 PDHG runs).  Device memory
+    must stay at one block's scale, not S's.  Then the device's idle
+    share over two supersteps, the ordering of the stream's copies, and
+    the stream checkpoint's resume (stream_resume_check)."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg
+    from mpisppy_tpu_torch.streaming.stream import batch_tensors
+    from mpisppy_tpu_torch.streaming.streaming_ph import StreamingPH
+    t0 = time.time()
+    with open(STREAM_WITNESS) as f:
+        wit = json.load(f)
+    order = stream_order_check()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    src = farmer.scenario_source(STREAM_S, STREAM_SOURCE_CFG)
+    sph, wall, _ = _stream_run(STREAM_OPTS, src, farmer)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = launch_variants()
+    consensus = pdhg.consensus_chunks
+    st = sph.stream_stats()
+    cert = sph.certified
+    tmpl = batch_tensors(sph.batch)
+    block_bytes = int(sum(t.numel() * t.element_size() for t in tmpl))
+    universe_bytes = block_bytes * STREAM_S // sph.block_width
+    check(cert is not None, f"the stream row certified nothing within "
+          f"{STREAM_ITERS} supersteps: {st['est_history']}")
+    check(wit["certified"], "the JAX witness did not certify")
+    check(int(sph.state.it) == wit["certified_at"],
+          f"certified at superstep {int(sph.state.it)}, the JAX package "
+          f"at {wit['certified_at']}")
+    check(len(st["est_history"]) == len(wit["est_history"]),
+          "a different number of certifications than the JAX package")
+    for (n, G, s_), (jn, jG, js) in zip(st["est_history"],
+                                        wit["est_history"]):
+        check(n == jn and abs(G - jG) <= 1e-2 * abs(jG)
+              and abs(s_ - js) <= 1e-2 * abs(js),
+              f"certify history {st['est_history']} is not the JAX "
+              f"package's {wit['est_history']} (1%)")
+    check(st["peak_block_scens"] == sph.block_width == STREAM_BLOCK,
+          f"peak block {st['peak_block_scens']}, width {sph.block_width}")
+    check(peak < universe_bytes / 20,
+          f"device memory grew {peak} bytes during the run: not one "
+          f"block's scale (the universe's is {universe_bytes})")
+    check(sph.state.x.device.type == "cuda", "the stream row left the card")
+    # the device's idle share over two supersteps, in a second run
+    prof_sph = StreamingPH(dict(STREAM_OPTS), farmer.scenario_source(
+        STREAM_S, STREAM_SOURCE_CFG), module=None)
+    prof_sph.Iter0()
+    prof = profile_window(prof_sph, 2)
+    prof_sph.close()
+    torch.cuda.synchronize()
+    reset_counts()
+    resume = stream_resume_check()
+    resume["launches"] = launch_variants()
+    out = {"phase": "stream", "S": STREAM_S, "block": STREAM_BLOCK,
+           "dtype": "float32", "options": STREAM_OPTS,
+           "certified": True, "ci_gap": st["ci_gap"],
+           "certificate": cert, "supersteps": st["supersteps"],
+           "sampled_scenarios": st["sampled_scenarios"],
+           "blocks_loaded": st["blocks_loaded"],
+           "scenarios_streamed": st["scenarios_streamed"],
+           "prefetch_wait_seconds": st["prefetch_wait_seconds"],
+           "wall_to_certificate_s": wall,
+           "est_history": st["est_history"],
+           "jax_witness": {k: wit[k] for k in (
+               "certified", "certified_at", "est_history", "ci_gap",
+               "supersteps", "s")},
+           "peak_block_scens": st["peak_block_scens"],
+           "block_width": sph.block_width,
+           "max_memory_allocated_growth_bytes": peak,
+           "block_bytes": block_bytes, "universe_bytes": universe_bytes,
+           "host_state_bytes": int(sph.W_host.nbytes + sph.x_na_host.nbytes
+                                   + sph.solved.nbytes
+                                   + sum(w.nbytes for w in
+                                         (sph._warm_host or ()))),
+           "eobj": float(cert["zhats"]),
+           "trivial_bound_estimate": sph.trivial_bound,
+           "launches": launches, "consensus_chunks": consensus,
+           "profile_window": prof, "order_check": order,
+           "resume": resume,
+           "cuts": {"superstep cap": {"bench": 60, "here": STREAM_ITERS}},
+           "s": time.time() - t0}
+    emit(out)
+    return out
+
+
+def shard_phase():
+    """bench.py's farmer_shard row on the card: the farmer universe
+    (S = 4,096) exported in shards of 64 with farmer.export_corpus, read
+    through ShardSource at readahead depth 4 by StreamingPH to its CI;
+    then the degraded rerun under the four storage chaos modes on the
+    last two shards of the Iter0 sweep (bench.py:1000-1015), held to the
+    JAX package's rules: the transient io_delay and io_error recover
+    through retries, the corrupt and the missing shard are quarantined
+    and their indices resampled, and the debit (> 0) is added to the
+    CI's upper end; the healthy run's debit is exactly 0.  A corpus
+    whose quarantined mass passes max_quarantined_frac fails hard."""
+    from mpisppy_tpu_torch.confidence_intervals import ciutils
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.streaming import (QuarantinedCorpusError,
+                                             ShardSource)
+    t0 = time.time()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    t = time.time()
+    farmer.export_corpus(SHARD_DIR, SHARD_S, shard_width=SHARD_WIDTH,
+                         cfg={"dtype": STREAM_OPTS["dtype"]})
+    export_s = time.time() - t
+    opts = dict(STREAM_OPTS)
+    reset_counts()
+    src = ShardSource(SHARD_DIR, depth=SHARD_DEPTH)
+    h, h_s, _ = _stream_run(opts, src, farmer)
+    hst = h.stream_stats()
+    hc = h.certified
+    healthy_launches = launch_variants()
+    check(hc is not None, f"the healthy shard run certified nothing: "
+          f"{hst['est_history']}")
+    check(hc["gap_debit"] == 0.0 and hc["quarantined_frac"] == 0.0,
+          f"the healthy run carries a debit: {hc}")
+    # the degraded rerun (bench.py:1000-1015); its BM_eps is the JAX
+    # chaos test's (tests/test_shard_store.py), so that a certificate
+    # carrying the debit is reachable at this quarantined mass
+    n0 = SHARD_N0
+    hi_sid = max((n0 - 1) // SHARD_WIDTH, 1)
+    chaos = {"io_delay": 0.001, "io_error": 2,
+             "shard_corrupt": [hi_sid - 1], "shard_missing": hi_sid}
+    csrc = ShardSource(SHARD_DIR, depth=SHARD_DEPTH, max_shard_retries=2,
+                       backoff=0.01, max_quarantined_frac=0.5, chaos=chaos)
+    c, c_s, _ = _stream_run(dict(opts, n0min=n0, BM_eps=60000.0), csrc,
+                            farmer)
+    cst = c.stream_stats()
+    cc, cstor = c.certified, cst["storage"]
+    check(cstor["read_retries"] >= 2, "the transient io errors were not "
+          f"retried: {cstor}")
+    check(cstor["quarantined_shards"] == [hi_sid - 1, hi_sid],
+          f"quarantined {cstor['quarantined_shards']}, not the corrupt "
+          f"and the missing shard {[hi_sid - 1, hi_sid]}")
+    check(cstor["resampled_indices"] > 0, "no index was resampled")
+    check(cc is not None, f"the degraded run certified nothing: "
+          f"{cst['est_history']}")
+    frac = 2 * SHARD_WIDTH / SHARD_S
+    check(abs(cc["quarantined_frac"] - frac) < 1e-12
+          and cc["gap_debit"] > 0.0
+          and abs(cc["CI"][1] - (c.rule.ci_upper(cc["s"])
+                                 + cc["gap_debit"])) <= 1e-9 * cc["CI"][1],
+          f"the degraded certificate does not carry the debit: {cc}")
+    check(abs(cc["gap_debit"] - ciutils.debit_quarantined_mass(
+        {"G": 0.0, "zhats": cc["zhats"]}, frac)) <= 0.05 * cc["gap_debit"],
+        f"debit {cc['gap_debit']} is not frac x |z|")
+    # past the budget the corpus fails hard
+    fsrc = ShardSource(SHARD_DIR, depth=SHARD_DEPTH, max_shard_retries=0,
+                       backoff=0.01, max_quarantined_frac=0.01,
+                       chaos={"shard_missing": hi_sid})
+    try:
+        _stream_run(dict(opts, n0min=n0), fsrc, farmer)
+        hard = None
+    except QuarantinedCorpusError as e:
+        hard = str(e)
+    check(hard is not None and "max_quarantined_frac" in hard,
+          f"a corpus past its quarantine budget did not fail: {hard}")
+    hstor = hst["storage"]
+    out = {"phase": "shard", "S": SHARD_S, "shard_width": SHARD_WIDTH,
+           "n_shards": src.store.n_shards, "readahead_depth": SHARD_DEPTH,
+           "dtype": STREAM_OPTS["dtype"], "corpus_export_s": export_s,
+           "corpus_bytes": sum(os.path.getsize(os.path.join(SHARD_DIR, f))
+                               for f in os.listdir(SHARD_DIR)),
+           "healthy": {
+               "wall_s": h_s, "certified": True, "ci_gap": hst["ci_gap"],
+               "gap_debit": hc["gap_debit"],
+               "supersteps": hst["supersteps"],
+               "sampled_scenarios": hst["sampled_scenarios"],
+               "prefetch_wait_seconds": hst["prefetch_wait_seconds"],
+               "readahead_hit_rate": hstor["readahead_hit_rate"],
+               "read_wait_seconds": hstor["read_wait_seconds"],
+               "shards_read": hstor["shards_read"],
+               "shards_quarantined": hstor["shards_quarantined"],
+               "quarantined_frac": hstor["quarantined_frac"],
+               "launches": healthy_launches},
+           "degraded": {
+               "chaos": chaos, "n0min": n0, "BM_eps": 60000.0,
+               "wall_s": c_s, "certified": True, "ci_gap": cst["ci_gap"],
+               "gap_debit": cc["gap_debit"],
+               "ci_upper_without_debit": c.rule.ci_upper(cc["s"]),
+               "supersteps": cst["supersteps"],
+               "read_retries": cstor["read_retries"],
+               "shards_quarantined": cstor["shards_quarantined"],
+               "quarantined_shards": cstor["quarantined_shards"],
+               "quarantined_frac": cstor["quarantined_frac"],
+               "resampled_indices": cstor["resampled_indices"],
+               "readahead_hit_rate": cstor["readahead_hit_rate"],
+               "read_wait_seconds": cstor["read_wait_seconds"]},
+           "hard_fail": hard[:160],
+           "launches": launch_variants(),
+           "cuts": {"degraded run's BM_eps": {"bench": 200.0,
+                                              "here": 60000.0},
+                    "degraded run's n0min (Iter0 sweep)": {
+                        "bench": 4 * STREAM_BLOCK, "here": SHARD_N0}},
+           "s": time.time() - t0}
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def _fixed_first_stage(b, xhat):
+    """The batch with its nonants boxed to `xhat` (the EF of it is the
+    candidate's evaluation)."""
+    import dataclasses as dc
+
+    import torch
+    na = b.nonant_idx
+    v = torch.as_tensor(np.asarray(xhat), dtype=b.lb.dtype,
+                        device=b.lb.device)
+    lb, ub = b.lb.clone(), b.ub.clone()
+    lb[:, na] = v
+    ub[:, na] = v
+    return dc.replace(b, lb=lb, ub=ub)
+
+
+def ci_phase():
+    """zhat4xhat and MMWConfidenceIntervals on farmer at the JAX tests'
+    sizes, farmer's optimum (170, 80, 250) as the candidate, on the
+    card; each sample's EF optimum and the candidate's value on it are
+    held against HiGHS on the same sample: zhat4xhat's interval must
+    cover the HiGHS mean of z(xhat), and MMW's [0, Gmax] the HiGHS gap
+    estimate."""
+    import torch
+
+    from mpisppy_tpu_torch.confidence_intervals import ciutils
+    from mpisppy_tpu_torch.confidence_intervals.mmw_ci import \
+        MMWConfidenceIntervals
+    from mpisppy_tpu_torch.confidence_intervals.zhat4xhat import zhat4xhat
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg
+    t0 = time.time()
+    xhat = np.array(CI_XHAT)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    zbar, zs, (lo, hi) = zhat4xhat(
+        farmer, xhat, num_samples=CI_ZHAT["num_samples"],
+        sample_size=CI_ZHAT["sample_size"], seed=CI_ZHAT["seed"],
+        options=CI_OPTS)
+    zhat_s = time.time() - t
+    n, k0 = CI_ZHAT["sample_size"], CI_ZHAT["seed"]
+    hz = [ef_lp_oracle(_fixed_first_stage(ciutils.sample_batch(
+        farmer, n, k0 + i * n, CI_OPTS), xhat))[0]
+        for i in range(CI_ZHAT["num_samples"])]
+    hz_bar = float(np.mean(hz))
+    check(abs(zbar - hz_bar) <= 1e-5 * abs(hz_bar),
+          f"zhat4xhat's mean {zbar} is not HiGHS's {hz_bar}")
+    check(lo <= hz_bar <= hi, f"[{lo}, {hi}] does not cover HiGHS's "
+          f"z(xhat) {hz_bar}")
+    zhat_launches = launch_variants()
+    reset_counts()
+    t = time.time()
+    mmw = MMWConfidenceIntervals(
+        farmer, dict(CI_OPTS), xhat, num_batches=CI_MMW["num_batches"],
+        batch_size=CI_MMW["batch_size"], start=CI_MMW["start"],
+        mname_is_module=True).run()
+    mmw_s = time.time() - t
+    consensus = pdhg.consensus_chunks
+    n = CI_MMW["batch_size"]
+    hg, hstar, hhat = [], [], []
+    for i in range(CI_MMW["num_batches"]):
+        b = ciutils.sample_batch(farmer, n, CI_MMW["start"] + i * n,
+                                 CI_OPTS)
+        zstar = ef_lp_oracle(b)[0]
+        zh = ef_lp_oracle(_fixed_first_stage(b, xhat))[0]
+        hstar.append(zstar)
+        hhat.append(zh)
+        hg.append(zh - zstar)
+    for what, got, want in (("zstar_bar", mmw["zstar_bar"], hstar),
+                            ("zhat_bar", mmw["zhat_bar"], hhat)):
+        check(abs(got - np.mean(want)) <= 1e-5 * abs(np.mean(want)),
+              f"MMW's {what} {got} is not HiGHS's {np.mean(want)}")
+    hg_bar = float(np.mean(hg))
+    slack = 1e-6 * abs(float(np.mean(hstar)))
+    check(mmw["gap_outer_bound"] - slack <= hg_bar
+          <= mmw["gap_inner_bound"] + slack,
+          f"MMW's [0, {mmw['gap_inner_bound']}] does not cover HiGHS's "
+          f"gap estimate {hg_bar}")
+    out = {"phase": "ci", "candidate": list(CI_XHAT), "options": CI_OPTS,
+           "zhat4xhat": {**CI_ZHAT, "zbar": zbar, "s": zs,
+                         "interval": [lo, hi], "highs_zbar": hz_bar,
+                         "wall_s": zhat_s, "launches": zhat_launches},
+           "mmw": {**CI_MMW, "gap_interval": [mmw["gap_outer_bound"],
+                                              mmw["gap_inner_bound"]],
+                   "Gbar": mmw["Gbar"], "Glist": mmw["Glist"],
+                   "zstar_bar": mmw["zstar_bar"],
+                   "zhat_bar": mmw["zhat_bar"],
+                   "highs_gap": hg_bar, "highs_zstar": hstar,
+                   "wall_s": mmw_s, "launches": launch_variants(),
+                   "consensus_chunks": consensus},
+           "s": time.time() - t0}
+    emit(out)
+    return out
+
+
 def start_second_process():
     """Start the second process on the same card (this script with
     SECOND_PROCESS_FLAG, see second_process), its lines going to
@@ -4227,7 +4733,8 @@ def join_second_process(child):
                 by_phase[d["phase"]] = d
     sys.stdout.flush()
     check(rc == 0, f"the second process ended with {rc} (stderr above)")
-    for phase in ("corpus", "algorithms", "soc", "cross_scen", "child"):
+    for phase in ("corpus", "algorithms", "soc", "cross_scen", "stream",
+                  "child"):
         check(phase in by_phase, f"the second process printed no {phase} "
               "line")
     for phase in ("corpus", "algorithms"):
@@ -4264,7 +4771,8 @@ def second_process(parent_pid):
     pdhg_chunk.load_library()
     for name, fn in (("corpus", corpus_phase),
                      ("algorithms", algorithms_phase),
-                     ("soc", soc_phase), ("cross_scen", cross_scen_phase)):
+                     ("soc", soc_phase), ("cross_scen", cross_scen_phase),
+                     ("stream", stream_phase)):
         t = time.time()
         fn()
         emit({"phase": f"{name}_done", "s": time.time() - t})
@@ -4387,6 +4895,14 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
     sslp_phase()
     golden_phase()
     emit({"phase": "compact_ucf_sslp_golden_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
+    t = time.time()
+    ci_phase()
+    emit({"phase": "ci_done", "s": time.time() - t,
+          "total_s": time.time() - t_all})
+    t = time.time()
+    shard = shard_phase()
+    emit({"phase": "shard_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
     second = join_second_process(child)
     corpus, alg = (second[k] for k in ("corpus", "algorithms"))
@@ -4549,16 +5065,26 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
     # checkpoint runs (f64) at wheel_row's split shape, the
     # cross-scenario hub's augmented dense batch, the SOC PH (f64)
     soc, cross = second["soc"], second["cross_scen"]
+    stream = second["stream"]
     mp_rows = mp["launch_shapes_hub"] + mp["launch_shapes_children"]
     new_paths = {"wheel_multiproc": mp_rows,
                  "checkpoint": ck["launch_shapes"],
-                 "cross_scen": cross["launches"], "soc": soc["launches"]}
-    path_of = {"split_wheel_row": ("wheel_multiproc", "checkpoint"),
+                 "cross_scen": cross["launches"], "soc": soc["launches"],
+                 "stream": stream["launches"], "shard": shard["launches"],
+                 "stream_resume": stream["resume"]["launches"]}
+    path_of = {"split_stream_block": ("stream", "stream_resume"),
+               "split_wheel_row": ("wheel_multiproc", "checkpoint"),
                "dense_cross_scen": ("cross_scen", "cross_scen"),
                "qs_soc_ieee14": ("soc", "soc")}
     for case, form, _ in NEW_PATH_KERNEL_CASES:
         f32, f64 = rows[(case, "float32")], rows[(case, "float64")]
-        n32, n64 = (_launched(new_paths[path], form, r["M"], r["N"], d)
+        # the stream rows share (M, N) = (7, 12) with wheel_row's: count
+        # them at their own S
+        at_S = case == "split_stream_block"
+        n32, n64 = (sum(x["launches"] for x in new_paths[path]
+                        if (x["form"], x["M"], x["N"], x["dtype"])
+                        == (form, r["M"], r["N"], d)
+                        and (not at_S or x["S"] == r["S"]))
                     for path, r, d in zip(path_of[case], (f32, f64),
                                           ("float32", "float64")))
         main_row, n_main, main_dt = ((f64, n64, "float64")
@@ -4592,6 +5118,21 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
         if case == "split_wheel_row":
             check(n64 > 0, "the split form at wheel_row's shape launched "
                   "no time in f64 on the checkpoint runs")
+        if case == "split_stream_block":
+            check(n64 > 0, "the split form at the stream block's shape "
+                  "launched no time in f64 on the stream resume check")
+            entry["launches_shard"] = sum(
+                x["launches"] for x in shard["launches"]
+                if (x["form"], x["S"], x["M"], x["N"], x["dtype"])
+                == ("split", 256, 7, 12, "float32"))
+            check(entry["launches_shard"] > 0, "the split form at the "
+                  "stream block's shape launched no time on the shard "
+                  "path")
+            entry["estimator_sample_sizes"] = sorted(
+                {h[0] for h in stream["est_history"]})
+            check(entry["estimator_sample_sizes"] == [STREAM_BLOCK],
+                  "the gap estimator's sample left the block's shape: "
+                  f"{entry['estimator_sample_sizes']}")
         kernels.append(entry)
     through["soc"] = soc["cluster_launches"]
     check(through["soc"] > 0, "soc launched the cluster kernel no time")

@@ -34,15 +34,14 @@ trees (confidence_intervals.sample_tree) reproducible from a seed.
 Nonants per stage t < T: [p_t, o_t, Ipos_t, Ineg_t (, u_t)]
 (stage-major, matching the reference's per-node nonant lists).
 
-Not ported yet (ROADMAP.md queue A): `scenario_source` (item 12,
-streaming) refuses.
+`scenario_source` serves blocks of the host-built tree to the
+streaming layer (`streaming.BatchSource`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import not_ported
 from ..convert import batch_from_arrays
 from ..scenario_tree import MultistageTree
 
@@ -218,10 +217,23 @@ def build_batch(branching_factors=(3, 2), start_seed=None,
 
 
 def scenario_source(num_scens, cfg=None):
-    """streaming.ScenarioSource for aircond (the JAX package's
-    BatchSource over the host-resident tree): refused until streaming
-    is ported."""
-    raise not_ported("aircond.scenario_source (streaming.BatchSource)", 12)
+    """streaming.ScenarioSource for aircond.  The universe is one
+    coupled multistage tree (node demands depend on the ancestor path),
+    so the tree is built once on the host, sized by
+    cfg["branching_factors"] (num_scens is ignored), and blocks are
+    gathered out of it (streaming.BatchSource).  StreamingPH refuses
+    multistage consensus; this source serves block builds, xhat
+    evaluation and EF sub-solves over leaf blocks."""
+    cfg = dict(cfg or {})
+    from ..utils.config import parse_branching_factors
+    bf = tuple(parse_branching_factors(
+        cfg.get("branching_factors", "3,2")))
+    kw = {k: cfg[k] for k in PARMS if k in cfg}
+    if "start_seed" in cfg:
+        kw["start_seed"] = cfg["start_seed"]
+    batch = build_batch(branching_factors=bf, device="cpu", **kw)
+    from ..streaming import BatchSource
+    return BatchSource(batch, name="aircond")
 
 
 def scenario_names_creator(num_scens, start=0):

@@ -24,8 +24,9 @@ The driver functions of `examples/farmer_cylinders.py`
 `scenario_creator` builds one scenario through `model.LinearModel`
 (the modelling path of `SPBase(scenario_creator=...)`).
 
-Not ported yet (ROADMAP queue A): `scenario_source` and
-`export_corpus` (item 12).
+`scenario_source` is the streaming layer's source over the farmer
+universe (host-built, split-native blocks) and `export_corpus` writes
+that universe as a shard corpus (`streaming/store.py`).
 """
 
 from __future__ import annotations
@@ -200,6 +201,40 @@ def build_batch(num_scens, crops_multiplier=1, use_integer=False,
                           use_integer=use_integer, seedoffset=seedoffset,
                           sense=sense, dtype=dtype, split=split,
                           device=device)
+
+
+def scenario_source(num_scens, cfg=None):
+    """streaming.ScenarioSource over the farmer universe.  Blocks are
+    built on the host, split-native by default, so the shared matrix is
+    never replicated per block (override with cfg["split"]).  Beside
+    the JAX package's keys, cfg["dtype"] sets the blocks' float dtype
+    (default float64)."""
+    cfg = dict(cfg or {})
+    kw = {
+        "crops_multiplier": int(cfg.get("crops_multiplier", 1)),
+        "use_integer": bool(cfg.get(
+            "use_integer", cfg.get("farmer_with_integers", False))),
+        "seedoffset": int(cfg.get("start_seed", cfg.get("seedoffset", 0))),
+        "sense": int(cfg.get("sense", 1)),
+        "split": cfg.get("split", True),
+        "dtype": np.dtype(cfg.get("dtype", np.float64)),
+        "device": "cpu",
+    }
+    from ..streaming import GeneratorSource
+    return GeneratorSource(
+        "farmer", int(num_scens),
+        lambda idx: scenario_block(idx, **kw),
+        name_fn=lambda i: f"scen{i}")
+
+
+def export_corpus(path, num_scens, shard_width=64, cfg=None):
+    """Persist the farmer universe as a durable shard corpus
+    (streaming/store.py) that a `ShardSource` streams back without this
+    module's generator.  Returns the corpus path."""
+    from ..streaming import write_corpus
+    return write_corpus(
+        scenario_source(num_scens, cfg), path, shard_width,
+        meta={"name_format": "scen{i}"})
 
 
 def scenario_creator(scenario_name, use_integer=False, sense=1,

@@ -23,8 +23,9 @@ The commitment-recovery helpers (`commitment_candidates`,
 `one_opt_commitment`) screen candidates through
 `SPOpt.evaluate_candidates` and certify with `evaluate_xhat`.
 
-Not ported yet (ROADMAP queue A item 12): `scenario_block`,
-`scenario_source` and `export_corpus`, which need the streaming layer.
+`scenario_block`, `scenario_source` and `export_corpus` are the
+streaming layer's hooks: host-built blocks over the wind universe and
+its shard corpus (`streaming/`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ import numpy as np
 
 import torch
 
-from .. import not_ported
 from ..convert import batch_from_arrays
 
 INF = float("inf")
@@ -278,16 +278,40 @@ def build_batch(num_scens, H=6, n_units=None, seed=91,
 
 
 def scenario_block(indices, num_scens=None, **kwargs):
-    raise not_ported("uc.scenario_block (the streaming block contract)",
-                     12)
+    """Exactly the scenarios named by `indices` (global ids): the
+    streaming block contract.  num_scens is accepted and ignored (the
+    universe size lives on the ScenarioSource); other kwargs are
+    build_batch's, `device` included."""
+    idx = np.asarray(indices, dtype=np.int64)
+    return build_batch(idx.size, scens=idx, **kwargs)
 
 
 def scenario_source(num_scens, cfg=None):
-    raise not_ported("uc.scenario_source (streaming.ScenarioSource)", 12)
+    """streaming.ScenarioSource over the UC wind universe, built on the
+    host.  The constraint matrix is scenario-independent (shared_A), so
+    every block carries the one shared (1, M, N) matrix, and
+    StreamingPH rescales the row bounds of its template prep instead of
+    re-running Ruiz per block."""
+    cfg = dict(cfg or {})
+    kw = {k: cfg[k] for k in
+          ("H", "n_units", "seed", "fleet_multiplier", "shared_A",
+           "min_up_down", "reserve_factor") if k in cfg}
+    kw["device"] = "cpu"
+    from ..streaming import GeneratorSource
+    return GeneratorSource(
+        "uc", int(num_scens),
+        lambda idx: scenario_block(idx, **kw),
+        name_fn=lambda i: f"Scenario{i+1}")
 
 
 def export_corpus(path, num_scens, shard_width=64, cfg=None):
-    raise not_ported("uc.export_corpus (streaming/store.py)", 12)
+    """Persist the UC wind universe as a durable shard corpus
+    (streaming/store.py); a shared A stays one (1, M, N) matrix per
+    shard.  Returns the corpus path."""
+    from ..streaming import write_corpus
+    return write_corpus(
+        scenario_source(num_scens, cfg), path, shard_width,
+        meta={"name_format": "Scenario{i1}"})
 
 
 def scenario_names_creator(num_scens, start=0):

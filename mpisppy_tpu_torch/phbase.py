@@ -428,13 +428,18 @@ class PHBase(SPOpt):
         return self.conv
 
     # -- crash-resume (resilience/checkpoint.py) --------------------------
+    def _save_checkpoint(self, path):
+        """Write this run's checkpoint (StreamingPH writes its stream
+        format instead)."""
+        from .resilience.checkpoint import save_run_checkpoint
+        save_run_checkpoint(path, self)
+
     def _maybe_checkpoint(self, k):
         path = self.options.get("run_checkpoint")
         if not path:
             return
         if k % int(self.options.get("checkpoint_every", 1)) == 0:
-            from .resilience.checkpoint import save_run_checkpoint
-            save_run_checkpoint(path, self)
+            self._save_checkpoint(path)
 
     def restore_run_checkpoint(self, path):
         """Install a full run checkpoint (state, bounds, iteration): the

@@ -14,14 +14,18 @@ key (JSON-serializable, so it crosses the multiproc spec boundary in
 `MPISPPY_TPU_CHAOS` environment variable (a JSON dict — for manual
 chaos runs against an unmodified driver).
 
-Injection points (all no-ops when unconfigured; the streaming, shard
-store and serve ticks wait for the port of those layers, ROADMAP.md
-queue A items 12 and 13):
+Injection points (all no-ops when unconfigured; the serve ticks wait
+for the port of that layer, ROADMAP.md queue A item 13):
   * `Spoke.spoke_from_hub` calls `step_tick()` once per read — the
     spoke-side step clock (crash_at_step / hang_at_step /
     hard_exit).
   * `Spoke.spoke_to_hub` routes outgoing vectors through
     `poison()` (nan_bound) and `pre_write()` (delay_write_s).
+  * `streaming.RetryingSource` calls `block_build_tick()` before
+    every block build attempt (block_build_fail).
+  * `streaming.ShardStore` calls `shard_read_tick(sid)` before every
+    shard read attempt (io_delay, io_error, shard_missing) and passes
+    the bytes read through `corrupt_shard_bytes` (shard_corrupt).
   * `PHBase.iterk_loop` calls `hub_iter_tick(k)` after the iter-k
     checkpoint is written (crash_at_iter).
 """

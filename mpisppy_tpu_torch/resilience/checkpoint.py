@@ -16,10 +16,15 @@ Writes are atomic: the .npz is written to `<path>.tmp` and
 `os.replace`d over the target, so a reader, or a resume after a crash
 mid-write, never sees a torn file.
 
-Not ported (ROADMAP.md queue A items 12 and 13): the stream
-checkpoints of StreamingPH, the MPMD wheel's ensemble checkpoints
-(`is_wheel_checkpoint` reads their marker only) and the serve layer's
-drain checkpoints.
+Stream checkpoints (`save_stream_checkpoint`, `load_stream_checkpoint`)
+hold a StreamingPH run: its host-resident full-S state, the sampler's
+RNG state and active size, the block already drawn, the certification
+cursor and, for a shard-backed source, the store's quarantine cursor.
+They too are the JAX package's format, read by either package.
+
+Not ported (ROADMAP.md queue A item 13): the MPMD wheel's ensemble
+checkpoints (`is_wheel_checkpoint` reads their marker only) and the
+serve layer's drain checkpoints.
 """
 
 from __future__ import annotations
@@ -164,6 +169,109 @@ def load_run_checkpoint(path, opt):
         if lad_eps is not None:
             # the restored tolerance only tightens the fresh ladder
             opt._ladder_eps = min(opt._ladder_eps, lad_eps)
+    return z
+
+
+def save_stream_checkpoint(path, sph):
+    """Atomically persist a StreamingPH run (streaming/streaming_ph.py).
+    Its trajectory is a function of the host-resident W, x_na, solved
+    mask and consensus x̄, the sampler's RNG state and active size, the
+    drawn next block and the certification cursor, all numpy; restoring
+    them and re-prefetching the pending block replays the run."""
+    if sph.state is None:
+        raise RuntimeError("cannot checkpoint before Iter0 (no state)")
+    import json
+
+    samp = sph.sampler.state()
+    warm = sph._warm_host  # (x_full, y_full) or None
+    names = sph.batch.tree.nonant_names
+    payload = {
+        "stream_format": np.int64(1),
+        "W_host": np.asarray(sph.W_host),
+        "x_na_host": np.asarray(sph.x_na_host),
+        "solved": np.asarray(sph.solved),
+        "xbar_host": np.asarray(sph.xbar_host),
+        "conv": np.float64(sph.conv),
+        "it": np.int64(int(sph.state.it)),
+        "active_n": np.int64(samp["active_n"]),
+        "est_rounds": np.int64(samp["est_rounds"]),
+        "rng_state": np.array(samp["rng_state"]),  # json string
+        "pending_indices": np.asarray(sph._pending_indices,
+                                      dtype=np.int64),
+        "est_seed": np.int64(sph._est_seed),
+        "est_history": np.array(json.dumps(sph._est_history)),
+        "trivial_bound": _opt_float(getattr(sph, "trivial_bound", None)),
+        "best_bound": _opt_float(getattr(sph, "best_bound", None)),
+        "ladder_eps": _opt_float(getattr(sph, "_ladder_eps", None)
+                                 if getattr(sph, "_ladder", None)
+                                 is not None else None),
+        "nonant_names": (np.array(names, dtype=object) if names
+                         else np.array([], dtype=object)),
+        "warm_x": (np.asarray(warm[0]) if warm is not None
+                   else np.array([])),
+        "warm_y": (np.asarray(warm[1]) if warm is not None
+                   else np.array([])),
+    }
+    # storage cursor of a shard-backed source: substitution is a pure
+    # function of (indices, quarantine set), so restoring the set
+    # replays the quarantine substitutions
+    store = sph._shard_store()
+    if store is not None:
+        payload["storage_cursor"] = np.array(json.dumps(store.state()))
+    return _atomic_savez(path, payload)
+
+
+def load_stream_checkpoint(path, sph):
+    """Install a stream checkpoint into `sph` (a StreamingPH), with the
+    shape and name checks of load_run_checkpoint.  The pending block is
+    not prefetched here: the caller re-issues the prefetch, and the
+    stream rebuilds it from the stored indices."""
+    import json
+
+    z = np.load(_norm_npz(path), allow_pickle=True)
+    if "stream_format" not in z:
+        raise ValueError(
+            f"{path} is a plain PH run checkpoint, not a stream "
+            "checkpoint (use PH.ph_main resume for it)")
+    W = np.asarray(z["W_host"])
+    S, K = sph.total_scens, sph.batch.num_nonants
+    if W.shape != (S, K):
+        raise ValueError(
+            f"stream checkpoint W{W.shape} does not match this source "
+            f"(S,K)=({S},{K})")
+    saved_names = tuple(np.asarray(z["nonant_names"]).tolist())
+    cur_names = tuple(sph.batch.tree.nonant_names or ())
+    if saved_names and cur_names and saved_names != cur_names:
+        raise ValueError(
+            "stream checkpoint nonant names do not match this model: "
+            f"{saved_names[:3]}... vs {cur_names[:3]}...")
+    sph.W_host = W.copy()
+    sph.x_na_host = np.asarray(z["x_na_host"]).copy()
+    sph.solved = np.asarray(z["solved"]).copy()
+    sph.xbar_host = np.asarray(z["xbar_host"]).copy()
+    sph.conv = float(z["conv"])
+    sph.sampler.restore({
+        "active_n": int(z["active_n"]),
+        "est_rounds": int(z["est_rounds"]),
+        "rng_state": str(z["rng_state"]),
+    })
+    sph._pending_indices = np.asarray(z["pending_indices"],
+                                      dtype=np.int64)
+    sph._est_seed = int(z["est_seed"])
+    sph._est_history = json.loads(str(z["est_history"]))
+    sph.trivial_bound = _opt_load(z["trivial_bound"])
+    sph.best_bound = _opt_load(z["best_bound"])
+    if getattr(sph, "_ladder", None) is not None:
+        lad_eps = _opt_load(z["ladder_eps"])
+        if lad_eps is not None:
+            sph._ladder_eps = min(sph._ladder_eps, lad_eps)
+    wx = np.asarray(z["warm_x"])
+    sph._warm_host = ((wx.copy(), np.asarray(z["warm_y"]).copy())
+                      if wx.size else None)
+    store = sph._shard_store()
+    if store is not None and "storage_cursor" in z:
+        store.restore(json.loads(str(z["storage_cursor"])))
+    sph._install_resumed_state(int(z["it"]))
     return z
 
 

@@ -103,15 +103,18 @@ class SPOpt(SPBase):
         self._promoted_cache = None
         self._np_cache = {}
 
-    def _build_prep(self, hot=None):
+    def _build_prep(self, hot=None, batch=None):
         """Ruiz scaling + ||A|| estimate over the batch constraint data,
         in the hot dtype's compute precision when `hot` applies, by the
         route the batch selects (split-native, delta-split unless
         `no_split_prep`, or dense).  With a solver sparse_threshold, a
         split prep whose shared block is sparse enough becomes a
         SparseSplitA (Ruiz scaling keeps the zero pattern, so the
-        density after scaling is the structural one)."""
-        b = self.batch
+        density after scaling is the structural one).
+
+        batch: prepare another ScenarioBatch than self.batch by the same
+        routing (the streaming layer's sampled blocks)."""
+        b = self.batch if batch is None else batch
         A, row_lo, row_hi = b.A, b.row_lo, b.row_hi
         pair = self.solver._hot_pair(b.c.dtype) if hot else None
         if pair is not None:
@@ -182,7 +185,8 @@ class SPOpt(SPBase):
     # -- hot path ---------------------------------------------------------
     def solve_loop(self, c=None, qdiag=None, lb=None, ub=None,
                    warm=True, dtiming=False, certify=False, eps=None,
-                   iters_cap=None):
+                   iters_cap=None, batch=None, prep=None, x0=None,
+                   y0=None):
         """Solve every scenario subproblem (batched).  c/qdiag/lb/ub
         override the batch's own tensors.
 
@@ -191,17 +195,43 @@ class SPOpt(SPBase):
         unconverged prob>0 scenario in float64) or "feas" (refine only
         primal-infeasible ones).  An uncapped solve goes through
         `solve_compacted` when the solver's compact_threshold is set.
+
+        batch/prep: solve another ScenarioBatch than self.batch (the
+        streaming layer's sampled blocks).  A block solve brings its own
+        prep, takes its warm start from x0/y0 only and neither reads
+        nor writes the instance's warm caches (they are shaped for
+        self.batch); certify is refused on it.  With an explicit prep
+        the solve runs on the configured solver (no hot-dtype
+        promotion: the caller chose the prep's dtype).
+        x0/y0: an explicit warm start; overrides the warm cache.
         Returns the ops.pdhg.SolveResult."""
-        b = self.batch
+        if batch is not None:
+            if prep is None:
+                raise ValueError(
+                    "solve_loop(batch=...) requires an explicit prep "
+                    "for the block's constraint data")
+            if certify:
+                raise ValueError(
+                    "certify is not supported on block solves "
+                    "(batch=...): _certified_resolve scatters into "
+                    "self.batch-shaped results")
+        b = self.batch if batch is None else batch
         t0 = time.time()
         tel = self._tel
         tn0 = time.monotonic_ns() if tel.enabled else 0
-        if isinstance(warm, str):
+        if batch is not None:
+            cache = (x0, y0)
+        elif isinstance(warm, str):
             cache = self._named_warm.get(warm, (None, None))
         else:
             cache = (self._x_warm, self._y_warm) if warm else (None, None)
+            if x0 is not None or y0 is not None:
+                cache = (x0, y0)
         eps_arg = self.solver_eps if eps is None else eps
-        solver, prep = self.active_solver_prep(eps_arg)
+        if prep is not None:
+            solver = self.solver
+        else:
+            solver, prep = self.active_solver_prep(eps_arg)
         args = (prep,
                 b.c if c is None else c,
                 b.qdiag if qdiag is None else qdiag,
@@ -236,7 +266,7 @@ class SPOpt(SPBase):
         it_n = int(res.iters)
         rst_n = int(torch.sum(res.restarts))
         # net of the compaction savings: `saved` is work not done
-        self._account(prep, it_n)
+        self._account(prep, it_n, S=b.num_scens)
         self._flops -= saved
         self._kernel_iters += it_n
         self._restarts_total += rst_n
@@ -246,9 +276,10 @@ class SPOpt(SPBase):
                 select = res.pres >= 10 * float(self.solver_eps)
             res = self._certified_resolve(res, c, qdiag, lb, ub,
                                           select=select)
-        if isinstance(warm, str):
+        # block solves never touch the self.batch-shaped caches
+        if batch is None and isinstance(warm, str):
             self._named_warm[warm] = (res.x, res.y)
-        elif warm:
+        elif batch is None and warm:
             self._x_warm = res.x
             self._y_warm = res.y
         _sync(res.x)

@@ -20,6 +20,16 @@ from mpisppy_tpu.models import farmer as jfarmer
 from mpisppy_tpu_torch import ir
 from mpisppy_tpu_torch.models import farmer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 FIELDS = ("c", "qdiag", "A", "row_lo", "row_hi", "lb", "ub", "obj_const",
           "nonant_idx", "integer_mask", "stage_cost_c")
 

@@ -10,15 +10,16 @@
   `scenario_creator`, stacked, equal their `build_batch` exactly and
   JAX's `stack_scenarios` of the JAX creators; `SPBase(
   scenario_creator=...)` builds the same batch as the JAX SPBase (the
-  stacked probabilities within 2 ulp: see `assert_same_batch`).
+  stacked probabilities within 2 ulp: see
+  `torch_parity.assert_same_batch`).
 * `pad_scenarios` of a dense, a shared and a SplitA batch equals JAX's.
 * `xhat_generator_aircond` (an EF through the port's opt/ef) returns
   the JAX package's stage-1 decisions.
 * `stack_scenarios` refuses mismatched shapes and nonant layouts.
-* What stays refused names its ROADMAP.md item: aircond's
-  `scenario_source` (12) and acopf3's SOC relaxation (9); the MIP
+* What was refused and is ported since constructs and runs: the MIP
   extensive form that usar's integer model needs and aircondB (item
-  10, ported since) construct and run.
+  10), acopf3's SOC relaxation (9) and aircond's `scenario_source`
+  (12).
 """
 
 import dataclasses
@@ -45,44 +46,22 @@ from mpisppy_tpu_torch.ops import pdhg
 from mpisppy_tpu_torch.opt import mip
 from mpisppy_tpu_torch.spbase import SPBase
 from mpisppy_tpu_torch.utils import amalgamator, config
+from torch_parity import assert_same_batch
 
 FIELDS = ("c", "qdiag", "A", "row_lo", "row_hi", "lb", "ub", "obj_const",
           "nonant_idx", "integer_mask", "stage_cost_c")
 TREE = ("node_of", "prob")
 
 
-def assert_same_batch(t, j, names=True, prob_ulps=0):
-    """Exact equality of the port's batch `t` and the JAX batch `j`:
-    every array (a SplitA field by field), the tree, the names.
-    prob_ulps: for stacked batches, the probabilities may differ by
-    that many units in the last place: the port divides by the
-    correctly rounded total (`math.fsum`), the JAX package by
-    `jnp.sum`, which can round six 1/6 to 1 - 2^-53."""
-    for f in FIELDS:
-        a, b = getattr(t, f), getattr(j, f)
-        if isinstance(a, ir.SplitA):
-            for g in ("shared", "rows", "cols", "vals"):
-                np.testing.assert_array_equal(host(getattr(a, g)),
-                                              np.asarray(getattr(b, g)))
-            continue
-        a, b = host(a), np.asarray(b)
-        assert a.shape == b.shape, f
-        np.testing.assert_array_equal(a, b, err_msg=f)
-    np.testing.assert_array_equal(host(t.tree.node_of),
-                                  np.asarray(j.tree.node_of))
-    if prob_ulps:
-        np.testing.assert_array_max_ulp(host(t.tree.prob),
-                                        np.asarray(j.tree.prob), prob_ulps)
-    else:
-        np.testing.assert_array_equal(host(t.tree.prob),
-                                      np.asarray(j.tree.prob))
-    assert t.tree.num_nodes == j.tree.num_nodes
-    assert tuple(t.tree.stage_of) == tuple(j.tree.stage_of)
-    assert tuple(t.tree.nonant_names) == tuple(j.tree.nonant_names)
-    if names:
-        assert tuple(t.tree.scen_names) == tuple(j.tree.scen_names)
-        assert tuple(t.var_names) == tuple(j.var_names)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # (module, positional num_scens or None, keyword arguments): the
 # examples/run_all.py rows' sizes, and the variants that draw otherwise
@@ -308,6 +287,10 @@ def test_still_refused_name_their_item(case):
         b2, mv, n = acopf3.add_soc_cuts(b, x, 0)
         assert n > 0 and mv == v.max() and b2.A.shape == b.A.shape
         return
-    match = "ROADMAP.md queue A item 12$"
-    with pytest.raises(NotImplementedError, match=match):
-        aircond.scenario_source(6, {"branching_factors": "3,2"})
+    # aircond.scenario_source (queue A item 12) is ported: it serves
+    # blocks of the host-built tree (held to the JAX package in
+    # tests/test_torch_streaming.py)
+    src = aircond.scenario_source(6, {"branching_factors": "3,2"})
+    blk = src.block([0, 5])
+    assert src.total_scens == 6 and blk.num_scens == 2
+    assert blk.c.device.type == "cpu"

@@ -37,6 +37,16 @@ from mpisppy_tpu_torch import convert, device
 from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.opt.ph import PH
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -59,7 +69,8 @@ def test_ast_no_jax_or_jax_package_imports():
                if p.parent != ROOT}
     assert {"cylinders", "resilience", "utils", "ops", "opt",
             "models", "telemetry", "extensions", "convergers",
-            "fwph", "runtime"} <= scanned
+            "fwph", "runtime", "streaming",
+            "confidence_intervals"} <= scanned
     assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
     assert ROOT / "mpisppy_tpu_torch" / "log.py" in files
     assert {p.name for p in files if p.parent.name == "telemetry"} == {
@@ -82,6 +93,8 @@ def test_ast_no_jax_or_jax_package_imports():
 
 _DRIVE = """
 import json, os, sys, tempfile
+import torch
+torch.set_num_threads(1)
 from mpisppy_tpu_torch import disable_tictoc_output, telemetry
 from mpisppy_tpu_torch.log import global_toc_logger
 from mpisppy_tpu_torch.models import farmer
@@ -157,6 +170,17 @@ sc_obj, _ = sc.SchurComplement({}, ["s0", "s1", "s2"],
 bph = PH({"PHIterLimit": 1}, ["b0", "b1"], batch=bundles.bundle_batch(
     farmer.build_batch(4, device="cpu"), 2), device="cpu")
 bph.ph_main()
+# statistics and streaming: a StreamingPH run with one certification
+from mpisppy_tpu_torch.confidence_intervals import (
+    ciutils, confidence_config, mmw_ci, multi_seqsampling, sample_tree,
+    seqsampling, zhat4xhat)
+from mpisppy_tpu_torch.streaming import StreamingPH, ShardSource
+sph = StreamingPH({"PHIterLimit": 2, "stream_block_size": 4,
+                   "stream_check_every": 2, "solver_eps": 1e-5},
+                  farmer.scenario_source(16, {}), module=farmer,
+                  device="cpu")
+sph.stream_main(finalize=False)
+stream = sph.stream_stats()
 with open(os.path.join(tdir, "trace.json")) as f:
     rows = [e["args"]["name"] for e in json.load(f)["traceEvents"]
             if e["ph"] == "M"]
@@ -172,11 +196,15 @@ wheel = sorted(m for m in sys.modules
                                 "mpisppy_tpu_torch.models.",
                                 "mpisppy_tpu_torch.model",
                                 "mpisppy_tpu_torch.scenario_tree",
+                                "mpisppy_tpu_torch.streaming.",
+                                "mpisppy_tpu_torch.confidence_intervals.",
                                 "mpisppy_tpu_torch.opt.")))
 print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
                   "ef_obj": ama.EF_Obj, "hydro_ef": hama.EF_Obj,
                   "hydro_nodes": sb.batch.tree.num_nodes,
                   "sc_obj": sc_obj,
+                  "stream": [stream["blocks_loaded"],
+                             len(stream["est_history"])],
                   "bounds": [ws.BestOuterBound, ws.BestInnerBound],
                   "traj": traj, "rows": rows,
                   "traffic": telemetry.traffic_counters()}))
@@ -212,6 +240,15 @@ def test_fresh_interpreter_port_run_loads_no_jax():
         "cylinders.lshaped_bounder", "cylinders.fwph_spoke",
         "utils.bundles", "utils.pickle_bundle")} <= set(res["wheel"])
     assert abs(res["sc_obj"] - -108390.0) < 1.0
+    # statistics and streaming (ROADMAP.md queue A item 12)
+    assert {f"mpisppy_tpu_torch.{m}" for m in (
+        "streaming.streaming_ph", "streaming.store",
+        "streaming.readahead", "streaming.stream", "streaming.sampler",
+        "confidence_intervals.ciutils", "confidence_intervals.mmw_ci",
+        "confidence_intervals.zhat4xhat",
+        "confidence_intervals.multi_seqsampling")} <= set(res["wheel"])
+    # Iter0 sweeps the first active sample (10) in 3 blocks of 4
+    assert res["stream"] == [5, 1]
     assert res["hydro_nodes"] == 4
     outer, inner = res["bounds"]
     assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner
@@ -231,6 +268,12 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
         PH({"PHIterLimit": 1}, ["s0", "s1", "s2"], batch=b)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.prep_from_arrays({})
+    from mpisppy_tpu_torch.confidence_intervals import ciutils
+    from mpisppy_tpu_torch.streaming import StreamingPH
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingPH({}, farmer.scenario_source(8, {}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ciutils.gap_estimators(np.zeros(3), farmer, num_scens=3)
     assert device.resolve_device("cpu").type == "cpu"
 
 

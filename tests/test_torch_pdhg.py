@@ -33,6 +33,16 @@ from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.ops import pdhg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rel):
     got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
     want = np.asarray(want)

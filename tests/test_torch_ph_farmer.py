@@ -15,6 +15,7 @@ JAX package, float64 on the CPU.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -25,6 +26,16 @@ from mpisppy_tpu_torch.convert import (batch_from_arrays, prep_from_arrays,
                                        state_from_arrays, to_arrays)
 from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.opt.ph import PH
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 NAMES = [f"scen{i}" for i in range(3)]
 N_ITERS = 8

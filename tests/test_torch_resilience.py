@@ -33,6 +33,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from mpisppy_tpu.models import farmer as jfarmer
 from mpisppy_tpu.opt.ph import PH as JPH
@@ -59,6 +60,16 @@ from mpisppy_tpu_torch.runtime import native
 from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
 from mpisppy_tpu_torch.utils.xhat_eval import Xhat_Eval
 from torch_parity import ONE
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 S = 6
 NAMES = [f"scen{i}" for i in range(S)]

@@ -45,6 +45,16 @@ from mpisppy_tpu_torch.opt.ph import PH
 
 import h100_occupancy as card
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
 
 

@@ -44,6 +44,16 @@ from mpisppy_tpu_torch.models import farmer
 from mpisppy_tpu_torch.ops import pdhg, pdhg_chunk
 from mpisppy_tpu_torch.opt.ph import PH
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small cases: more intra-op threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 NAMES = [f"scen{i}" for i in range(3)]
 N_ITERS = 3
 OPTS = {"defaultPHrho": 1.0, "PHIterLimit": N_ITERS, "convthresh": 0.0,

@@ -20,6 +20,8 @@ of `SPOpt` against the JAX package, float64 on the CPU.
   helpers, and the streaming entry points of uc that stay refused.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -160,12 +162,19 @@ def test_commitment_repair_and_candidates_match_jax():
     assert uc._infer_H(tb, 18) == juc._infer_H(jb, 18) == 6
 
 
-def test_uc_streaming_entry_points_stay_refused():
-    for fn, args in ((uc.scenario_block, ([0, 1],)),
-                     (uc.scenario_source, (4,)),
-                     (uc.export_corpus, ("x", 4))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(*args)
+def test_uc_streaming_entry_points_stay_refused(tmp_path):
+    """The streaming hooks (queue A item 12) are ported and no longer
+    refuse: blocks equal the JAX package's, and the corpus reads back
+    (tests/test_torch_streaming.py, test_torch_shard_store.py hold the
+    rest)."""
+    blk = uc.scenario_block([0, 3], H=4, device="cpu")
+    np.testing.assert_array_equal(
+        blk.row_lo.numpy(),
+        np.asarray(juc.scenario_block([0, 3], H=4).row_lo))
+    assert uc.scenario_source(4, {"H": 4}).block([1]).num_scens == 1
+    path = uc.export_corpus(str(tmp_path / "c"), 4, shard_width=2,
+                            cfg={"H": 4})
+    assert sorted(os.listdir(path))[-1] == "shard-000001.mts"
 
 
 @pytest.fixture(scope="module")

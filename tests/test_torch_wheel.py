@@ -278,7 +278,7 @@ WHEELS = {
     "lagrangian_xhatxbar": (
         [(LagrangianOuterBound, PH, {}), (XhatXbarInnerBound, Xhat_Eval,
                                           {})],
-        [(JLagrangian, JPH), (JXbar, JXhat_Eval)], {"PHIterLimit": 15}),
+        [(JLagrangian, JPH), (JXbar, JXhat_Eval)], {"PHIterLimit": 8}),
     "lagranger_slammax": (
         [(LagrangerOuterBound, PH, {}), (SlamMaxHeuristic, Xhat_Eval, {})],
         # slam-max candidates are infeasible on farmer: every xhat step
@@ -287,14 +287,14 @@ WHEELS = {
         # 40 iterations) stays quick on the CPU; the PH and Lagranger
         # solves here take at most 1,000 iterations.
         [(JLagranger, JPH), (JSlamMax, JXhat_Eval)],
-        {"PHIterLimit": 12, "pdhg_max_iters": 3000,
+        {"PHIterLimit": 6, "pdhg_max_iters": 3000,
          "certify_max_iters": 2000}),
     "xhatlooper_xhatspecific": (
         [(XhatLooperInnerBound, Xhat_Eval, {"scen_limit": 2}),
          (XhatSpecificInnerBound, Xhat_Eval,
           {"xhat_scenario_dict": {0: 1}})],
         [(JLooper, JXhat_Eval), (JSpecific, JXhat_Eval)],
-        {"PHIterLimit": 8}),
+        {"PHIterLimit": 4}),
 }
 
 

@@ -78,3 +78,69 @@ def assert_traces_match(t, j, tol=TOL):
                 assert rel(x, y) <= tol, (a, b)
             else:
                 assert x == y, (a, b)
+
+
+BATCH_FIELDS = ("c", "qdiag", "A", "row_lo", "row_hi", "lb", "ub",
+                "obj_const", "nonant_idx", "integer_mask", "stage_cost_c",
+                "var_prob")
+
+
+def assert_same_batch(t, j, names=True, prob_ulps=0):
+    """Exact equality of the port's batch `t` and the JAX batch `j`:
+    every array (a SplitA field by field), the tree, the names.
+    prob_ulps: for stacked batches, the probabilities may differ by
+    that many units in the last place: the port divides by the
+    correctly rounded total (`math.fsum`), the JAX package by
+    `jnp.sum`, which can round six 1/6 to 1 - 2^-53."""
+    from mpisppy_tpu_torch.device import host
+    from mpisppy_tpu_torch.ir import SplitA
+
+    for f in BATCH_FIELDS:
+        a, b = getattr(t, f), getattr(j, f)
+        if a is None or b is None:
+            assert a is None and b is None, f
+            continue
+        if isinstance(a, SplitA):
+            for g in ("shared", "rows", "cols", "vals"):
+                np.testing.assert_array_equal(host(getattr(a, g)),
+                                              np.asarray(getattr(b, g)))
+            continue
+        a, b = host(a), np.asarray(b)
+        assert a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    np.testing.assert_array_equal(host(t.tree.node_of),
+                                  np.asarray(j.tree.node_of))
+    if prob_ulps:
+        np.testing.assert_array_max_ulp(host(t.tree.prob),
+                                        np.asarray(j.tree.prob), prob_ulps)
+    else:
+        np.testing.assert_array_equal(host(t.tree.prob),
+                                      np.asarray(j.tree.prob))
+    assert t.tree.num_nodes == j.tree.num_nodes
+    assert tuple(t.tree.stage_of) == tuple(j.tree.stage_of)
+    assert tuple(t.tree.nonant_names) == tuple(j.tree.nonant_names)
+    if names:
+        assert tuple(t.tree.scen_names) == tuple(j.tree.scen_names)
+        assert tuple(t.var_names) == tuple(j.var_names)
+
+
+@pytest.fixture(scope="module")
+def jax_ci_one_mesh():
+    """The JAX confidence-interval modules' ExtensiveForm and Xhat_Eval
+    on the one-device mesh: on the default 8-device test mesh each
+    sampled solve pads its batch and compiles anew (~4 s a call)."""
+    import functools
+
+    from mpisppy_tpu.confidence_intervals import (ciutils,
+                                                  multi_seqsampling,
+                                                  sample_tree, seqsampling,
+                                                  zhat4xhat)
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (ciutils, multi_seqsampling, sample_tree, seqsampling,
+                    zhat4xhat):
+            for name in ("ExtensiveForm", "Xhat_Eval"):
+                cls = getattr(mod, name, None)
+                if cls is not None:
+                    mp.setattr(mod, name,
+                               functools.partial(cls, mesh=ONE))
+        yield
