@@ -9,8 +9,9 @@ Phases, one JSON line each (any failure exits non-zero):
   2. build    nvcc build (or load) of csrc/pdhg_chunk.cu, and what ptxas
               reports for each of its 27 instantiated kernels (9 of the
               tiled kernel, A in registers; 18 of the cluster kernel, A
-              resident or streamed): registers, spills, stack; no
-              kernel may spill
+              resident or streamed; each in the dense, shared and split
+              forms, the last two reading one matrix a request of a
+              group): registers, spills, stack; no kernel may spill
   3. kernel   each form of the PDHG chunk kernel (dense (S, M, N),
               shared (1, M, N), split SplitA) against its plain torch
               version at the main paths' shapes (farmer S=1000,
@@ -215,18 +216,53 @@ hub and the two spokes, metrics.jsonl, its wheel and traffic counters.
  21. ci       zhat4xhat and MMWConfidenceIntervals on farmer, each
               sample's EF optimum and z(xhat) against HiGHS, the
               intervals covering HiGHS's values
+ 22. serve    bench.py's serve row: 16 farmer S=3 f32 requests through a
+              2-replica Router (serve_max_batch 8, 200 PH iterations,
+              coalesce window 0.25 s), an untimed warm pass then a timed
+              one, in thread mode and in process mode (one OS process a
+              replica, each its own CUDA context on this card; the
+              parent builds the kernel library, no child runs nvcc):
+              throughput in both modes and their ratio, the cache hit
+              rate, boot seconds, artifact loads, the thread mode's
+              grouped launches (a group of 8 is one launch a chunk);
+              the bitwise checks on farmer-3 with the golden options, f32
+              and f64 (two standalone PH.ph_main runs, a batch-of-one
+              service result, a process replica's result: all
+              bit-equal); the chaos row (replica_crash, slow_replica, a
+              poison request mid-stream: every other request ok, the
+              poison quarantined) with its resilience counters
+ 23. serve_net bench.py's serve_net row: the cold-start A/B of the
+              group plans (worked out and saved, then loaded by a fresh
+              cache), then 8 wire Clients through a Gateway over a
+              2-replica Router under chaos: p50 / p99 latency,
+              throughput
+ 24. serve_bucket the full-width bucket: 8 requests of farmer S=1000,
+              cm=10, f32, the split prep, coalesced into one group
+              (grouped split launches over 8,000 scenarios), each held
+              to the same request served alone (2e-4; whether the bits
+              are equal); uc's fallback bucket (4 requests of the shared
+              (1, 174, 114) matrix, S=250) for the grouped shared form
+              (SERVE_CUTS lists the cuts)
 The kernel phase also holds the kernel at the new paths' shapes
 against its plain version (NEW_PATH_KERNEL_CASES): the stream block
 (256, 7, 12) split, wheel_row's split prep (100, 7, 12), the
-cross-scenario hub's augmented batch (100, 47, 13), the SOC batch.
+cross-scenario hub's augmented batch (100, 47, 13), the SOC batch; and
+the grouped forms (GROUPED_KERNEL_CASES: split (24, 7, 12) with 8
+matrices, split (8000, 61, 120) with 8, shared (1000, 174, 114) with
+4), each against its plain version, bit-equal to its requests' solo
+launches at the same variant and to the dense kernel on the assembled
+matrices, with the time of the same requests as solo launches.  The
+checkpoint phase's two uninterrupted f64 runs must be bit-equal (the
+superstep's sums add in a fixed order on the card).
 The corpus phase, the algorithms sub-runs of ALG_CHILD (line
 `algorithms`), soc, cross_scen and stream run in a second
 process on the same
 card (this script with SECOND_PROCESS_FLAG), started when true_size
 ends, beside the uc, wheel and driver phases, the algorithms sub-runs
 of ALG_MAIN (line `algorithms_main`), wheel_multiproc, checkpoint,
-compact, the uc fallback pass, sslp, the golden, ci and shard of the
-main process (compact, the uc fallback pass, sslp and the golden ran in the
+compact, the uc fallback pass, sslp, the golden and serve (serve,
+serve_net, serve_bucket) of the main process; since the serve phase
+ci and shard run at the end of the second process (compact, the uc fallback pass, sslp and the golden ran in the
 second process until soc and
 cross_scen joined it); its lines are copied into this output when it ends, the
 last one `child` with its wall.
@@ -644,6 +680,71 @@ CI_OPTS = {"solver_eps": 1e-7}
 CI_XHAT = (170.0, 80.0, 250.0)
 CI_ZHAT = {"num_samples": 4, "sample_size": 8, "seed": 300}
 CI_MMW = {"num_batches": 3, "batch_size": 10, "start": 1000}
+# the serve phase: bench.py's serve row (bench.py:537-663: farmer S=3,
+# 16 requests, serve_max_batch 8, 2 replicas, 200 PH iterations at
+# convthresh 0, coalesce window 0.25 s, an untimed warm pass then a
+# timed one, thread mode then process mode) with its chaos row
+# (bench.py:476-534: 8 requests, replica_crash 1, slow_replica 0.02, a
+# poison request mid-stream) and the serve_net row (bench.py:670-800),
+# f32 as on the bench's accelerator; at the bench's settings but for the
+# PH iterations, cut so that the phase fits the script's limit (at the
+# bench's 200, and 50 in the chaos and wire rows, the three rows took
+# ~180 s on the card: tests/serve_phase_witness.py)
+SERVE_S = 3
+SERVE_REQUESTS = 16
+SERVE_MAX_BATCH = 8
+SERVE_REPLICAS = 2
+SERVE_PH_ITERS = 40
+SERVE_CHAOS_PH_ITERS = 10
+SERVE_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": SERVE_PH_ITERS,
+              "convthresh": 0.0, "pdhg_eps": 1e-6}
+SERVE_CHAOS_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": SERVE_CHAOS_PH_ITERS,
+                    "convthresh": 1e-4, "pdhg_eps": 1e-6}
+SERVE_CHAOS_REQUESTS = 8
+SERVE_NET_CLIENTS = 8
+SERVE_CHAOS_ROUTER_OPTS = {
+    "serve_replicas": 2, "serve_max_batch": 1,
+    "serve_restart_backoff": 0.01, "serve_restart_backoff_cap": 0.05,
+    "router_tick": 0.01, "router_probe_interval": 0.02,
+    "router_hedge_threshold": 1.0, "router_breaker_backoff": 0.05,
+    "router_breaker_backoff_cap": 0.5, "router_drain_deadline": 0.3,
+    "telemetry": True}
+# the bitwise checks: farmer-3 with the golden options (golden_phase)
+# but 50 PH iterations (the golden's 200: the f32 runs never reach its
+# convthresh, and the eight runs took 53 s of the phase on a slow host,
+# measured on one H100; the golden phase holds the goldens)
+SERVE_GOLDEN_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": 50,
+                     "convthresh": 1e-5, "pdhg_eps": 1e-7}
+# the full-width bucket: BUCKET_REQUESTS requests of farmer S=1000,
+# cm=10, f32, the split prep, with the bench's solver options but no
+# eps ladder (a group's tolerance is each request's superstep_eps,
+# fixed for the group, as the JAX package's vmapped group fixes it),
+# BUCKET_PH_ITERS PH iterations and Iter0 at 1e-4 (at the bench's 1e-5
+# the 8 Iter0s took most of the group's ~39 s, and again of the solo
+# runs': tests/serve_phase_witness.py)
+BUCKET_REQUESTS = 8
+BUCKET_PH_ITERS = 2
+BUCKET_OPTS = {"defaultPHrho": 1.0, "PHIterLimit": BUCKET_PH_ITERS,
+               "convthresh": 0.0, "pdhg_eps": 1e-4, "superstep_eps": 1e-4,
+               "pdhg_max_iters": 30000}
+# uc's fallback bucket: 4 requests (seeds 91..94) of the shared (1, 174,
+# 114) matrix at S=250 with the uc row's options, one PH iteration
+SERVE_UC_REQUESTS = 4
+SERVE_UC_OPTS = dict(UC_OPTS, PHIterLimit=1)
+SERVE_CUTS = {"serve_ph_iterations": {"bench": 200, "here": SERVE_PH_ITERS},
+              "chaos_and_wire_ph_iterations": {
+                  "bench": 50, "here": SERVE_CHAOS_PH_ITERS},
+              "bucket_ph_iterations": {"bench": "to the gap",
+                                       "here": BUCKET_PH_ITERS},
+              "bucket_iter0_eps": {"bench": 1e-5, "here": 1e-4},
+              "bucket_eps_ladder": "left out (see BUCKET_OPTS)",
+              "uc_bucket_ph_iterations": {"uc row": 25, "here": 1},
+              "bitwise_ph_iterations": {"golden": 200, "here": 50}}
+# the grouped kernel rows: (name, form, S a request, cm, requests)
+GROUPED_KERNEL_CASES = (
+    ("split_serve_group", "split", SERVE_S, 1, SERVE_MAX_BATCH),
+    ("split_bucket_group", "split", S, CM, BUCKET_REQUESTS),
+    ("shared_uc_group", "shared", UC_FALLBACK_S, None, SERVE_UC_REQUESTS))
 # values the second process's phases share (the aircond HiGHS optimum)
 SHARED = {}
 # the corpus phase, the ALG_CHILD algorithms, soc and cross_scen run in
@@ -784,8 +885,8 @@ def template_args(mangled):
 def ptxas_report(log):
     """What `nvcc -Xptxas -v` said about each kernel: its template
     arguments (the tiled kernel: storage, compute, rows per thread,
-    column vectors per lane, warps, source of A 0 (registers), form of
-    A: 0 dense / 1 shared / 2 split, min blocks per SM; the cluster
+    column vectors per lane, warps, form of A: 0 dense / 1 shared /
+    2 split, min blocks per SM; the cluster
     kernel: storage, compute, source of A: 1 resident / 2 streamed,
     form), registers, stack, spill stores and loads."""
     out, cur = [], None
@@ -815,8 +916,8 @@ def ptxas_report(log):
 
 
 # template arguments of the main path's f32 variant (all but min blocks):
-# storage, compute, R, V, W, source (0 registers), form (0 dense)
-MAIN_F32 = ["float", "float", "8", "1", "8", "0", "0"]
+# storage, compute, R, V, W, form (0 dense)
+MAIN_F32 = ["float", "float", "8", "1", "8", "0"]
 
 
 def sass_summary(lib):
@@ -832,7 +933,7 @@ def sass_summary(lib):
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
     for block in re.split(r"\n\s*Function : ", out.stdout)[1:]:
         args = template_args(block.split("\n", 1)[0].strip())
-        if not args or args[:7] != MAIN_F32 or "pdhg_chunk_tiledI" not in \
+        if not args or args[:6] != MAIN_F32 or "pdhg_chunk_tiledI" not in \
                 block.split("\n", 1)[0]:
             continue
         ins = [(int(a, 16), i.strip()) for a, i in
@@ -861,13 +962,15 @@ def build_phase():
     lib = pdhg_chunk.build()
     pdhg_chunk.load_library()
     report = ptxas_report(pdhg_chunk.build_log_path().read_text())
-    # for each of f32, f64 and bf16: each form with A in registers (the
-    # tiled kernel) and with A resident or streamed (the cluster kernel)
+    # for each of f32, f64 and bf16: each form (dense, shared, split; the
+    # shared and split forms also take a group's matrices) with A in
+    # registers (the tiled kernel) and with A resident or streamed (the
+    # cluster kernel)
     check(len(report) == 27, f"ptxas reported {len(report)} kernels")
     check(sum(k["kernel"] == "pdhg_chunk_cluster" for k in report) == 18,
           "ptxas reported other than 18 cluster kernels")
     main = [k for k in report if k["kernel"] == "pdhg_chunk_tiled"
-            and k["variant"].split(", ")[:7] == MAIN_F32]
+            and k["variant"].split(", ")[:6] == MAIN_F32]
     check(len(main) == 1, "no ptxas line for the main path's f32 variant")
     for k in report:
         check(k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0,
@@ -953,12 +1056,15 @@ def chunk_bytes(A, vec, n_steps=N_STEPS, on_chip=None, wave=None):
     (`on_chip`, default on_chip_bytes()), that excess again at every
     step of each of the ceil(S / wave) waves:
     |A| + n_steps x ceil(S / wave) x max(0, |A of a wave| - on_chip)."""
-    from mpisppy_tpu_torch.ir import SplitA
+    from mpisppy_tpu_torch.ir import GroupedA, SplitA
     S = vec[0].shape[0]
     if isinstance(A, SplitA):
         shared = (A.shared.numel() * A.shared.element_size()
                   + 2 * A.rows.numel() * A.rows.element_size())
         each = A.vals.numel() * A.vals.element_size() // S
+    elif isinstance(A, GroupedA):
+        # a group's B matrices, each read by its request's scenarios
+        shared, each = A.stack.numel() * A.stack.element_size(), 0
     elif A.shape[0] == 1:
         shared, each = A.numel() * A.element_size(), 0
     else:
@@ -1122,6 +1228,8 @@ def kernel_phase(name):
     rows.update(new_path_kernel_rows(peak_name, bw, f32_peak, f64_peak,
                                     n_sm))
     rows.update(cluster_forms_rows())
+    rows.update(grouped_kernel_rows(peak_name, bw, f32_peak, f64_peak,
+                                    n_sm))
     return rows
 
 
@@ -1200,6 +1308,7 @@ def reset_counts():
     pdhg_chunk.launches = 0
     pdhg_chunk.launch_shapes.clear()
     pdhg_chunk.variant_launches.clear()
+    pdhg_chunk.grouped_launches.clear()
     pdhg.matmul_chunks = 0
     pdhg.consensus_chunks = 0
 
@@ -4227,7 +4336,10 @@ def checkpoint_phase():
             abs(float(p.state.conv) - float(q.state.conv)) \
             <= 1e-8 * abs(float(q.state.conv)) + 1e-12
     replay = diff(a2, a)
-    check(close(a2, a), f"two uninterrupted runs differ: {replay}")
+    # the reductions of the superstep add in a fixed order on the card:
+    # two runs are the same bits
+    check(max(replay.values()) == 0.0,
+          f"two uninterrupted runs differ: {replay}")
     b, b_s, crashed = run({"run_checkpoint": CKPT_PATH,
                            "chaos": {"crash_at_iter": CKPT_CRASH_AT}})
     check(crashed is not None and f"iter {CKPT_CRASH_AT}" in crashed,
@@ -4691,6 +4803,560 @@ def ci_phase():
     return out
 
 
+# ---- the serve phase ------------------------------------------------------
+
+def _serve_router(opts):
+    """A started Router on the card (the serve layer's front door)."""
+    from mpisppy_tpu_torch.serve.router import Router
+    return Router(dict(opts)).start()
+
+
+def _bitwise(a, b):
+    """Two serve results (or solution dicts) equal bit for bit: conv,
+    E[obj], the trivial bound and x̄."""
+    return (a["conv"] == b["conv"] and a["eobj"] == b["eobj"]
+            and a["trivial_bound"] == b["trivial_bound"]
+            and np.array_equal(np.asarray(a["xbar"]), np.asarray(b["xbar"])))
+
+
+def serve_golden(proc_router):
+    """Phase d on farmer-3 with the golden options, f32 and f64: two
+    standalone `PH.ph_main` runs, a batch-of-one service result and a
+    process replica's result (`proc_router`), all bit-equal."""
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.serve.service import SolverService
+    names = [f"scen{i}" for i in range(3)]
+    out = {}
+    for dt in (np.float32, np.float64):
+        dname = np.dtype(dt).name
+        sols = []
+        for _ in range(2):
+            ph = PH(dict(SERVE_GOLDEN_OPTS), names,
+                    batch=farmer.build_batch(3, dtype=dt))
+            ph.ph_main()
+            sols.append(ph.solution_dict())
+        svc = SolverService().start()
+        try:
+            one = svc.solve(farmer.build_batch(3, dtype=dt, device="cpu"),
+                            SERVE_GOLDEN_OPTS, scenario_names=names,
+                            model="farmer", timeout=600)
+        finally:
+            svc.shutdown()
+        proc = proc_router.solve(
+            farmer.build_batch(3, dtype=dt, device="cpu"),
+            SERVE_GOLDEN_OPTS, scenario_names=names, model="farmer",
+            idempotency_key=f"golden-{dname}", timeout=600)
+        row = {"standalone_twice": _bitwise(sols[0], sols[1]),
+               "batch_of_one": one["status"] == "ok"
+               and _bitwise(one, sols[0]),
+               "process_replica": proc["status"] == "ok"
+               and _bitwise(proc, sols[0]),
+               "eobj": sols[0]["eobj"], "iterations": sols[0]["iterations"]}
+        for k in ("standalone_twice", "batch_of_one", "process_replica"):
+            check(row[k], f"serve golden {dname}: {k} is not bit-equal "
+                  f"({one.get('eobj')}, {proc.get('eobj')}, "
+                  f"{sols[0]['eobj']}, {sols[1]['eobj']})")
+        out[dname] = row
+    return out
+
+
+def serve_row():
+    """bench.py's serve row on the card: 16 farmer S=3 f32 requests
+    through a 2-replica Router, an untimed warm pass then a timed one,
+    in thread mode and then in process mode (one OS process a replica,
+    each its own CUDA context on this card), both sharing one artifact
+    dir; the process fleet also serves the golden bitwise checks
+    (`serve_golden`).  Then the chaos row (bench.py:476-534)."""
+    import tempfile
+
+    import torch
+
+    from mpisppy_tpu_torch import telemetry
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    t0 = time.time()
+    batches = [farmer.build_batch(SERVE_S, seedoffset=i, dtype=np.float32,
+                                  device="cpu")
+               for i in range(SERVE_REQUESTS)]
+    os.makedirs("build", exist_ok=True)
+    aot = tempfile.mkdtemp(prefix="serve_aot_", dir="build")
+    prev = os.environ.get("MPISPPY_TPU_COMPILE_CACHE_DIR")
+    os.environ["MPISPPY_TPU_COMPILE_CACHE_DIR"] = aot
+    out = {"phase": "serve", "requests": SERVE_REQUESTS, "S": SERVE_S,
+           "dtype": "float32", "options": SERVE_OPTS,
+           "replicas": SERVE_REPLICAS, "max_batch": SERVE_MAX_BATCH,
+           "cuts": SERVE_CUTS, "phase_s": {}}
+    try:
+        for mode in ("thread", "process"):
+            tb = time.time()
+            router = _serve_router({
+                "serve_replicas": SERVE_REPLICAS,
+                "serve_replica_mode": mode,
+                "serve_max_batch": SERVE_MAX_BATCH,
+                "serve_max_inflight": SERVE_REQUESTS + 8,
+                "serve_coalesce_window_s": 0.25,
+                "router_hedge_threshold": None, "telemetry": True})
+            boot = time.time() - tb
+            try:
+                tw = time.time()
+                warm = [router.submit(b, SERVE_OPTS, model="farmer",
+                                      idempotency_key=f"warm-{mode}-{i}")
+                        for i, b in enumerate(batches)]
+                for h in warm:
+                    router.result(h, timeout=600)
+                out["phase_s"][f"{mode}_warm"] = time.time() - tw
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.time()
+                hs = [router.submit(b, SERVE_OPTS, model="farmer",
+                                    idempotency_key=f"run-{mode}-{i}")
+                      for i, b in enumerate(batches)]
+                res = [router.result(h, timeout=600) for h in hs]
+                wall = time.time() - t
+                ok = sum(r["status"] == "ok" for r in res)
+                check(ok == SERVE_REQUESTS, f"serve {mode}: {ok} of "
+                      f"{SERVE_REQUESTS} requests ok: {res[:2]}")
+                row = {"wall_s": wall, "boot_s": boot,
+                       "throughput_req_per_s": SERVE_REQUESTS / wall,
+                       "ok": ok, "iterations": sorted(
+                           {r["iterations"] for r in res}),
+                       "eobj": sorted({r["eobj"] for r in res})}
+                st = router.stats()
+                cc = st["compile_cache"]
+                row["compile_cache"] = cc
+                row["compile_cache_hit_rate"] = cc["hits"] / max(
+                    1, cc["hits"] + cc["misses"])
+                if mode == "thread":
+                    row["launch_shapes"] = launch_table()
+                    row["grouped_launches"] = grouped_table()
+                else:
+                    row["proc_boot_seconds"] = st.get("proc_boot_seconds")
+                    row["prewarm_loaded"] = st.get("prewarm_loaded")
+                    row["aot_prewarm_hits"] = cc.get("aot_prewarm_hits")
+                    row["aot_loads"] = cc.get("aot_loads")
+                    tg = time.time()
+                    out["bitwise"] = serve_golden(router)
+                    out["phase_s"]["bitwise"] = time.time() - tg
+                out[mode] = row
+                out["phase_s"][mode] = time.time() - tb
+            finally:
+                router.shutdown(timeout=30)
+        out["speedup_process_vs_thread"] = (
+            out["process"]["throughput_req_per_s"]
+            / out["thread"]["throughput_req_per_s"])
+        out["serve_counters"] = telemetry.serve_counters()
+        tc = time.time()
+        out["chaos"] = serve_chaos_row()
+        out["phase_s"]["chaos"] = time.time() - tc
+        out["router_counters"] = telemetry.router_counters()
+    finally:
+        if prev is None:
+            os.environ.pop("MPISPPY_TPU_COMPILE_CACHE_DIR", None)
+        else:
+            os.environ["MPISPPY_TPU_COMPILE_CACHE_DIR"] = prev
+        telemetry.reset()
+    launched = out["thread"]["grouped_launches"]
+    check(any(r["bases"] == SERVE_MAX_BATCH and r["form"] == "split"
+              for r in launched),
+          f"the serve row launched no group of {SERVE_MAX_BATCH}: "
+          f"{launched}")
+    out["host_cpus"] = len(os.sched_getaffinity(0))
+    out["s"] = time.time() - t0
+    emit(out)
+    return out
+
+
+def serve_chaos_row():
+    """bench.py's chaos row: 8 requests (plus a poison one mid-stream)
+    through a 2-replica thread Router under replica_crash,
+    slow_replica and poison_request on slot 0."""
+    from mpisppy_tpu_torch.models import farmer
+    router = _serve_router(dict(SERVE_CHAOS_ROUTER_OPTS, chaos={
+        "replica_crash": 1, "slow_replica": 0.02, "poison_request": True,
+        "chaos_replica": 0}))
+    try:
+        batch = farmer.build_batch(SERVE_S, dtype=np.float32, device="cpu")
+        handles, poison = [], None
+        for i in range(SERVE_CHAOS_REQUESTS):
+            handles.append(router.submit(batch, SERVE_CHAOS_OPTS,
+                                         model="farmer",
+                                         idempotency_key=f"chaos{i}"))
+            if i == SERVE_CHAOS_REQUESTS // 2:
+                poison = router.submit(
+                    batch, dict(SERVE_CHAOS_OPTS, chaos_poison=True),
+                    model="farmer", idempotency_key="chaos-poison")
+            time.sleep(0.05)
+        results = [router.result(h, timeout=600) for h in handles]
+        bad = router.result(poison, timeout=600)
+        st = router.stats()
+    finally:
+        router.shutdown(timeout=10)
+    ok = sum(r["status"] == "ok" for r in results)
+    check(ok == SERVE_CHAOS_REQUESTS, f"serve chaos: {ok} of "
+          f"{SERVE_CHAOS_REQUESTS} ok")
+    check(bad["status"] == "failed"
+          and str(bad.get("reason", "")).startswith("quarantined"),
+          f"the poison request was not quarantined: {bad}")
+    counts = st["counts"]
+    return {"requests": len(handles) + 1, "ok": ok,
+            "poison": bad["reason"], "p50_s": st["p50"], "p99_s": st["p99"],
+            "hedged_requests": counts.get("hedged_requests", 0),
+            "shed_requests": counts.get("shed_requests", 0)
+            + counts.get("shed_hedges", 0),
+            "breaker_opens": counts.get("breaker_opens", 0),
+            "replica_restarts": st["replica_restarts"],
+            "quarantined": counts.get("quarantined", 0)}
+
+
+def serve_net_row():
+    """bench.py's serve_net row on the card: the cold-start A/B of the
+    group plans (a fresh cache that works the plan out and saves it,
+    against a fresh cache that loads it; the variant picker's memo
+    cleared before each), then 8 wire Clients through a Gateway over a
+    2-replica thread Router with chaos on: p50/p99 latency and
+    throughput."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from mpisppy_tpu_torch import telemetry
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    from mpisppy_tpu_torch.opt.ph import PH
+    from mpisppy_tpu_torch.serve import compile_cache as cc
+    from mpisppy_tpu_torch.serve.net import Client, Gateway
+    from mpisppy_tpu_torch.serve.service import stack_superstep_args
+    t0 = time.time()
+    out = {"phase": "serve_net", "S": SERVE_S, "dtype": "float32",
+           "clients": SERVE_NET_CLIENTS, "options": SERVE_CHAOS_OPTS,
+           "cuts": {"ph_iterations": SERVE_CUTS[
+               "chaos_and_wire_ph_iterations"]}}
+    with tempfile.TemporaryDirectory(prefix="mtaot_", dir="build") as d:
+        os.environ["MPISPPY_TPU_COMPILE_CACHE_DIR"] = d
+        try:
+            phs = []
+            for _ in range(2):
+                ph = PH(dict(SERVE_CHAOS_OPTS),
+                        [f"s{i}" for i in range(SERVE_S)],
+                        batch=farmer.build_batch(SERVE_S, dtype=np.float32))
+                ph.Iter0()
+                phs.append(ph)
+            args = stack_superstep_args(phs)
+            times, loads = [], []
+            for _ in range(2):
+                pdhg_chunk.pick_variant.cache_clear()
+                cache = cc.CompileCache(device="cuda")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run = cache.get(phs[0].batch, SERVE_CHAOS_OPTS,
+                                model="farmer").batched_superstep(args)
+                run(args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                loads.append(cache.stats())
+        finally:
+            del os.environ["MPISPPY_TPU_COMPILE_CACHE_DIR"]
+    check(loads[0]["aot_saves"] == 1 and loads[1]["aot_loads"] == 1,
+          f"the plan was not saved and loaded: {loads}")
+    out.update(cold_start_seconds_compute=times[0],
+               cold_start_seconds=times[1], aot_cache_hits=
+               loads[1]["aot_loads"], plan=run.plan)
+    gw = Gateway({"telemetry": True}, router=_serve_router(
+        dict(SERVE_CHAOS_ROUTER_OPTS, chaos={
+            "replica_crash": 1, "slow_replica": 0.02,
+            "chaos_replica": 0}))).start()
+    host, port = gw.address
+    outcomes = [None] * SERVE_NET_CLIENTS
+
+    def one(i):
+        with Client(host, port, request_timeout=600.0) as cli:
+            outcomes[i] = cli.solve(
+                farmer.build_batch(SERVE_S, seedoffset=i, dtype=np.float32,
+                                   device="cpu"), SERVE_CHAOS_OPTS,
+                timeout=600, model="farmer",
+                idempotency_key=f"net-{i}")
+
+    try:
+        t = time.time()
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(SERVE_NET_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.time() - t
+        st = gw.router.stats()
+        counters = telemetry.gateway_counters()
+    finally:
+        gw.shutdown()
+        gw.router.shutdown(timeout=10)
+        telemetry.reset()
+    ok = sum(1 for r in outcomes if r is not None and r["status"] == "ok")
+    check(ok == SERVE_NET_CLIENTS, f"serve_net: {ok} of "
+          f"{SERVE_NET_CLIENTS} clients ok: {outcomes[:2]}")
+    out.update(wall_s=wall, throughput_req_per_s=SERVE_NET_CLIENTS / wall,
+               p50_latency_s=st["p50"], p99_latency_s=st["p99"], ok=ok,
+               replica_restarts=st["replica_restarts"],
+               gateway=counters, s=time.time() - t0)
+    emit(out)
+    return out
+
+
+def serve_bucket():
+    """Phase c: BUCKET_REQUESTS requests of farmer S=1000 at cm=10 (the
+    slice row's width), f32, the split prep, coalesced into ONE group
+    (grouped split launches over S x BUCKET_REQUESTS scenarios), each
+    result held to the same request served alone on the card (the
+    kernel's variant is the register tile either way; 2e-4, and
+    whether the bits are equal); then uc's fallback bucket, 4 requests
+    of the shared (1, 174, 114) matrix at S=250, one group iteration,
+    so that the grouped shared form runs on a path."""
+    import torch
+
+    from mpisppy_tpu_torch.models import farmer, uc
+    from mpisppy_tpu_torch.serve.service import SolverService
+    t0 = time.time()
+    batches = [farmer.build_batch(S, crops_multiplier=CM, seedoffset=i,
+                                  dtype=np.float32, device="cpu")
+               for i in range(BUCKET_REQUESTS)]
+    svc = SolverService({"serve_max_batch": BUCKET_REQUESTS})
+    hs = [svc.submit(b, BUCKET_OPTS, model="farmer") for b in batches]
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    svc.start()
+    try:
+        group = [svc.result(h, timeout=900) for h in hs]
+    finally:
+        svc.shutdown()
+    torch.cuda.synchronize()
+    group_s = time.time() - t
+    check(svc._dispatches == 1, f"the bucket ran in {svc._dispatches} "
+          "dispatches, not one group")
+    launched = grouped_table()
+    shapes = launch_table()
+    check(all(r["status"] == "ok" for r in group),
+          f"bucket group: {[r['status'] for r in group]}")
+    solo_svc = SolverService({"serve_max_batch": 1}).start()
+    t = time.time()
+    try:
+        solo = [solo_svc.solve(b, BUCKET_OPTS, model="farmer", timeout=900)
+                for b in batches]
+    finally:
+        solo_svc.shutdown()
+    solo_s = time.time() - t
+    diffs, equal = [], []
+    for g, s in zip(group, solo):
+        check(s["status"] == "ok", f"solo bucket request: {s['status']}")
+        xs = max(1.0, float(np.max(np.abs(s["xbar"]))))
+        d = max(abs(g["eobj"] - s["eobj"]) / max(1.0, abs(s["eobj"])),
+                abs(g["trivial_bound"] - s["trivial_bound"])
+                / max(1.0, abs(s["trivial_bound"])),
+                float(np.max(np.abs(g["xbar"] - s["xbar"]))) / xs)
+        diffs.append(d)
+        equal.append(_bitwise(g, s))
+        check(d <= TOL["float32"], f"a grouped bucket request differs from "
+              f"the same request alone by {d:.3e}")
+        check(g["iterations"] == s["iterations"], "a grouped request ran "
+              f"{g['iterations']} PH iterations, alone {s['iterations']}")
+    key = ("split", S * BUCKET_REQUESTS, 61, 120, "float32",
+           BUCKET_REQUESTS)
+    n_group = sum(r["launches"] for r in launched
+                  if tuple(r[k] for k in ("form", "S", "M", "N", "dtype",
+                                          "bases")) == key)
+    check(n_group > 0, f"the bucket launched no grouped split chunk: "
+          f"{launched}")
+    # uc's fallback bucket, one group iteration
+    ubatches = [uc.build_batch(UC_FALLBACK_S, **UC_FALLBACK, seed=91 + k,
+                               dtype=np.float32, device="cpu")
+                for k in range(SERVE_UC_REQUESTS)]
+    svc = SolverService({"serve_max_batch": SERVE_UC_REQUESTS})
+    hs = [svc.submit(b, SERVE_UC_OPTS, model="uc") for b in ubatches]
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    svc.start()
+    try:
+        ures = [svc.result(h, timeout=900) for h in hs]
+    finally:
+        svc.shutdown()
+    uc_s = time.time() - t
+    check(all(r["status"] == "ok" for r in ures),
+          f"uc bucket: {[r.get('status') for r in ures]}")
+    ukey = ("shared", UC_FALLBACK_S * SERVE_UC_REQUESTS, 174, 114,
+            "float32", SERVE_UC_REQUESTS)
+    ulaunched = grouped_table()
+    n_uc = sum(r["launches"] for r in ulaunched
+               if tuple(r[k] for k in ("form", "S", "M", "N", "dtype",
+                                       "bases")) == ukey)
+    check(n_uc > 0, f"the uc bucket launched no grouped shared chunk: "
+          f"{ulaunched}")
+    out = {"phase": "serve_bucket", "requests": BUCKET_REQUESTS, "S": S,
+           "crops_multiplier": CM, "dtype": "float32",
+           "options": BUCKET_OPTS, "group_s": group_s, "solo_s": solo_s,
+           "max_rel_diff_vs_alone": max(diffs), "tol": TOL["float32"],
+           "bitwise_equal_vs_alone": equal,
+           "iterations": [r["iterations"] for r in group],
+           "solve_iters": [r["solve_iters"] for r in group],
+           "grouped_launches": launched, "launch_shapes": shapes,
+           "grouped_split_launches": n_group,
+           "uc": {"requests": SERVE_UC_REQUESTS, "S": UC_FALLBACK_S,
+                  "options": SERVE_UC_OPTS, "s": uc_s,
+                  "grouped_launches": ulaunched,
+                  "grouped_shared_launches": n_uc},
+           "cuts": SERVE_CUTS, "s": time.time() - t0}
+    emit(out)
+    return out
+
+
+def serve_phase():
+    """Phases a-d of the serve layer on the card (the kernel rows, e,
+    are measured in the kernel phase): bench.py's serve and serve_net
+    rows, the full-width bucket and the bitwise checks."""
+    t = time.time()
+    row = serve_row()
+    net = serve_net_row()
+    bucket = serve_bucket()
+    return {"serve": row, "serve_net": net, "bucket": bucket,
+            "s": time.time() - t}
+
+
+def grouped_table():
+    """The launches of grouped forms since the last reset_counts(), by
+    (form, S, M, N, dtype, matrices)."""
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    return [{"form": k[0], "S": k[1], "M": k[2], "N": k[3], "dtype": k[4],
+             "bases": k[5], "launches": n}
+            for k, n in sorted(pdhg_chunk.grouped_launches.items())]
+
+
+def _grouped_inputs(case, store):
+    """(A, vec, parts) of a grouped kernel row: the group's operator and
+    vectors, and each request's own (A, vec)."""
+    import torch
+
+    from mpisppy_tpu_torch.ir import GroupedA, SplitA
+    from mpisppy_tpu_torch.models import farmer, uc
+    _, form, scens, cm, bases = case
+    compute = torch.float64 if store == torch.float64 else torch.float32
+    ndt = np.float64 if compute == torch.float64 else np.float32
+    parts = []
+    for k in range(bases):
+        if form == "split":
+            args = batch_space_inputs(farmer.build_batch(
+                scens, crops_multiplier=cm, seedoffset=k, dtype=ndt),
+                split=True)
+            args[0] = args[0].astype(store)
+        else:
+            args = model_solver_space_inputs(uc.build_batch(
+                scens, **UC_FALLBACK, seed=91 + k, dtype=ndt))
+            args[0] = args[0].to(store).contiguous()
+        parts.append((args[0], args[1:]))
+    if form == "split":
+        A = SplitA(shared=torch.stack([a.shared for a, _ in parts]),
+                   rows=parts[0][0].rows, cols=parts[0][0].cols,
+                   vals=torch.cat([a.vals for a, _ in parts]))
+    else:
+        A = GroupedA(stack=torch.cat([a for a, _ in parts]),
+                     per_base=scens)
+    vec = [torch.cat([v[i] for _, v in parts]).contiguous()
+           for i in range(10)]
+    return A, vec, parts
+
+
+def grouped_kernel_rows(peak_name, bw, f32_peak, f64_peak, n_sm):
+    """Phase e: the grouped forms against their plain versions (2e-4 f32
+    and bf16, 1e-9 f64), bit-equal to the same requests as B solo
+    launches with the variant forced equal and to the dense kernel on
+    the assembled matrices; time, bound (chunk_bytes with B matrices),
+    share, and the time of B solo launches of the same requests (each
+    with its own variant)."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg_chunk
+    rows = {}
+    for case in GROUPED_KERNEL_CASES:
+        name, form = case[:2]
+        for store, peak in ((torch.float32, f32_peak),
+                            (torch.float64, f64_peak),
+                            (torch.bfloat16, f32_peak)):
+            dname = str(store).replace("torch.", "")
+            A, vec, parts = _grouped_inputs(case, store)
+            S, (_, M, N) = vec[0].shape[0], A.shape
+            ref = pdhg_chunk.REFERENCE[form]
+            got = pdhg_chunk.fused_chunk(A, *vec, N_STEPS)
+            want = ref(A, *vec, N_STEPS)
+            err_abs = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            err_rel = max(float((g - w).abs().max())
+                          / max(1.0, float(w.abs().max()))
+                          for g, w in zip(got, want))
+            check(err_rel <= TOL[dname], f"{name} {dname}: the grouped "
+                  f"kernel disagrees with its plain version: {err_rel:.3e}")
+            v = pdhg_chunk.card_variant(S, M, N, store)
+            pb = S // len(parts)
+            solo = [pdhg_chunk.fused_chunk(a, *vv, N_STEPS, variant=v)
+                    for a, vv in parts]
+            eq_solo = all(torch.equal(g[i * pb:(i + 1) * pb], s[j])
+                          for i, s in enumerate(solo)
+                          for j, g in enumerate(got))
+            check(eq_solo, f"{name} {dname}: the group differs from its "
+                  "requests' solo launches at the same variant")
+            dense = (A.to_dense() if form == "split"
+                     else A.stack.repeat_interleave(pb, 0)).contiguous()
+            d = pdhg_chunk.fused_chunk(dense, *vec, N_STEPS)
+            vs_dense = max(float((g - w).abs().max())
+                           for g, w in zip(got, d))
+            check(vs_dense == 0.0, f"{name} {dname}: the grouped form "
+                  f"differs from the dense kernel by {vs_dense}")
+            del dense, d
+
+            def call():
+                return pdhg_chunk.fused_chunk(A, *vec, N_STEPS)
+
+            def calls():
+                return [pdhg_chunk.fused_chunk(a, *vv, N_STEPS)
+                        for a, vv in parts]
+
+            ms = time_ms(call, queue_behind_sleep=True)
+            solo_ms = time_ms(calls, queue_behind_sleep=True)
+            plain_ms = time_ms(lambda: ref(A, *vec, N_STEPS), reps=3,
+                               batch=3)
+            variant, blocks, held = pdhg_chunk.occupancy(S, M, N, store,
+                                                         form)
+            nbytes = chunk_bytes(A, vec, wave=held)
+            flops = N_STEPS * S * (4 * M * N + 10 * N + 8 * M)
+            t_bytes = nbytes / bw * 1e3
+            t_ops = flops / peak * 1e3
+            bound = max(t_bytes, t_ops)
+            row = {"case": name, "form": form, "dtype": dname, "S": S,
+                   "M": M, "N": N, "bases": len(parts), "n_steps": N_STEPS,
+                   "max_abs_err": err_abs, "max_rel_err": err_rel,
+                   "tol_rel": TOL[dname], "bit_equal_solo_same_variant":
+                   eq_solo, "max_abs_err_vs_dense_kernel": vs_dense,
+                   "ms": ms, "solo_launches_ms": solo_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations", "share_of_bound": bound / ms,
+                   "bytes": nbytes, "flops": flops,
+                   "peaks": {"card": peak_name, "bytes_per_s": bw,
+                             "flops_per_s": peak},
+                   "variant": dataclasses.asdict(variant),
+                   "kernel": ("pdhg_chunk_tiled"
+                              if variant.source == "registers"
+                              else "pdhg_chunk_cluster"),
+                   "cluster": variant.cluster, "blocks_per_sm": blocks,
+                   "sms": n_sm, "active_clusters": held,
+                   "waves": S / held, "library_ms": None}
+            rows[(name, dname)] = row
+            emit({"phase": "kernel", **row})
+            del A, vec, parts, got, want, solo
+            torch.cuda.empty_cache()
+    return rows
+
+
 def start_second_process():
     """Start the second process on the same card (this script with
     SECOND_PROCESS_FLAG, see second_process), its lines going to
@@ -4734,7 +5400,7 @@ def join_second_process(child):
     sys.stdout.flush()
     check(rc == 0, f"the second process ended with {rc} (stderr above)")
     for phase in ("corpus", "algorithms", "soc", "cross_scen", "stream",
-                  "child"):
+                  "ci", "shard", "child"):
         check(phase in by_phase, f"the second process printed no {phase} "
               "line")
     for phase in ("corpus", "algorithms"):
@@ -4749,9 +5415,9 @@ def join_second_process(child):
 
 def second_process(parent_pid):
     """The second process of main(): the corpus phase, the ALG_CHILD
-    algorithms, soc and cross_scen, each as main() ran them before
-    (counts zeroed just before each path); the kernel library is the
-    one main()'s build phase built.
+    algorithms, soc, cross_scen, stream, ci and shard, each as main()
+    ran them before (counts zeroed just before each path); the kernel
+    library is the one main()'s build phase built.
     Its last line is `child` with its wall.  It is killed when main()'s
     process ends (PR_SET_PDEATHSIG), so that no run outlives the
     script."""
@@ -4772,7 +5438,8 @@ def second_process(parent_pid):
     for name, fn in (("corpus", corpus_phase),
                      ("algorithms", algorithms_phase),
                      ("soc", soc_phase), ("cross_scen", cross_scen_phase),
-                     ("stream", stream_phase)):
+                     ("stream", stream_phase), ("ci", ci_phase),
+                     ("shard", shard_phase)):
         t = time.time()
         fn()
         emit({"phase": f"{name}_done", "s": time.time() - t})
@@ -4897,15 +5564,12 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
     emit({"phase": "compact_ucf_sslp_golden_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
     t = time.time()
-    ci_phase()
-    emit({"phase": "ci_done", "s": time.time() - t,
-          "total_s": time.time() - t_all})
-    t = time.time()
-    shard = shard_phase()
-    emit({"phase": "shard_done", "s": time.time() - t,
+    served = serve_phase()
+    emit({"phase": "serve_done", "s": time.time() - t,
           "total_s": time.time() - t_all})
     second = join_second_process(child)
-    corpus, alg = (second[k] for k in ("corpus", "algorithms"))
+    corpus, alg, shard = (second[k] for k in ("corpus", "algorithms",
+                                               "shard"))
     alg_launched = alg["launched"] + alg_main["launched"]
     for case, shape, _ in ALG_KERNEL_CASES:
         check(alg_launched[("dense", shape[1], shape[2], "float32")] > 0,
@@ -5136,6 +5800,44 @@ def main_after_true_size(t_all, rows, sl, bx, sp, ts, child):
         kernels.append(entry)
     through["soc"] = soc["cluster_launches"]
     check(through["soc"] > 0, "soc launched the cluster kernel no time")
+    # the grouped forms (serve phase), each with its launches on its path
+    # (counted from zero there): the serve row's groups of 8 (thread
+    # mode's timed pass), the full-width bucket, uc's fallback bucket
+    grouped_on = {
+        "split_serve_group": served["serve"]["thread"]["grouped_launches"],
+        "split_bucket_group": served["bucket"]["grouped_launches"],
+        "shared_uc_group": served["bucket"]["uc"]["grouped_launches"]}
+    for case, form, _, _, bases in GROUPED_KERNEL_CASES:
+        f32 = rows[(case, "float32")]
+        n32 = sum(r["launches"] for r in grouped_on[case]
+                  if (r["form"], r["S"], r["M"], r["N"], r["dtype"],
+                      r["bases"]) == (form, f32["S"], f32["M"], f32["N"],
+                                      "float32", bases))
+        gkeys = keys + ("solo_launches_ms", "bit_equal_solo_same_variant",
+                        "max_abs_err_vs_dense_kernel")
+        entry = {
+            "name": f"pdhg_chunk_{case}", "route": "cuda",
+            "source": "mpisppy_tpu_torch/csrc/pdhg_chunk.cu",
+            "replaces": "mpisppy_tpu/ops/pallas_pdhg.py:106",
+            "launches": n32,
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a chunk of "
+                            "PDHG steps",
+            "form": form, "dtype": "float32", "bases": bases,
+            "shape": [f32["S"], f32["M"], f32["N"]],
+            "variant_source": f32["variant"]["source"],
+            "share_of_bound": f32["share_of_bound"],
+            "solo_launches_ms": f32["solo_launches_ms"],
+            "bit_equal_solo_same_variant":
+                f32["bit_equal_solo_same_variant"],
+            **{k: f32[k] for k in CLUSTER_KEYS},
+            "f64": {k: rows[(case, "float64")][k] for k in gkeys},
+            "bf16": {k: rows[(case, "bfloat16")][k] for k in gkeys}}
+        check(n32 > 0, f"the grouped {form} form ({case}) launched no "
+              "time on its serve path")
+        kernels.append(entry)
     # every entry: its form's launches at any shape on the new paths
     for e in kernels:
         e["launches_new_paths_by_form"] = {

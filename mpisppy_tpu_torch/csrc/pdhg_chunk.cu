@@ -22,6 +22,13 @@
 //           shared-A form);
 //   split   shared (M, N) plus vals (S, nnz) at (rows, cols) (ir.SplitA):
 //           A(s) = shared + scatter-add of vals[s].
+// The shared and split forms may hold B matrices (B, M, N) instead of
+// one: a coalesced group of B requests of one bucket (serve/), each
+// with its own matrix, which the `per_base` = S / B consecutive
+// scenarios of a request read (matrix s / per_base; per_base is the
+// kernel's last argument, S for one matrix, which gives the matrix
+// every scenario reads).  The split form's rows and cols are the same
+// for the whole group.
 // Every form builds the same per-scenario tile, from which the step loop
 // runs unchanged.  The shared and split forms read `shared` instead of
 // the scenario's slab (every block reads the same M x N matrix, which
@@ -312,8 +319,7 @@ __device__ __forceinline__ T reduce_scatter(T (&v)[R], int lane, int& row) {
   return v[0];
 }
 
-template <typename TS, typename T, int R, int V, int W, int SRC, int FORM,
-          int MINB>
+template <typename TS, typename T, int R, int V, int W, int FORM, int MINB>
 __global__ void __launch_bounds__(W * 32, MINB)
 pdhg_chunk_tiled(const TS* __restrict__ A, const int* __restrict__ drows,
                  const int* __restrict__ dcols,
@@ -325,15 +331,13 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const int* __restrict__ drows,
                  const T* __restrict__ y0, const T* __restrict__ tau,
                  const T* __restrict__ sigma, T* __restrict__ xo,
                  T* __restrict__ yo, T* __restrict__ xso,
-                 T* __restrict__ yso, int M, int N, int n_steps, int vec) {
+                 T* __restrict__ yso, int M, int N, int n_steps, int vec,
+                 int per_base) {
   constexpr int NT = 32 * W;
   constexpr int RT = R * W;    // rows of one tile
   constexpr int CT = 128 * V;  // columns of one tile
-  static_assert(SRC == kRegisters, "the tile is held in registers");
   const int Mp = (M + RT - 1) / RT * RT;
   const int Np = (N + CT - 1) / CT * CT;
-  const int n_rt = 1;
-  const int n_ct = 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* x = reinterpret_cast<T*>(smem_raw);
@@ -373,8 +377,10 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const int* __restrict__ drows,
     rh[i] = in ? rhi[om + i] : T(0);
     ysum[i] = T(0);
   }
-  // the shared and split forms read the one shared matrix
-  const TS* Ag = FORM == kDense ? A + (size_t)s * (size_t)M * (size_t)N : A;
+  // the shared and split forms read the matrix of the scenario's
+  // request (the one shared matrix when per_base = S)
+  const TS* Ag = A + (size_t)(FORM == kDense ? s : s / per_base) *
+                         (size_t)M * (size_t)N;
   const TS* vs = FORM == kSplit ? dvals + (size_t)s * (size_t)nnz : dvals;
   const T tau_s = tau[s];
   const T sig = sigma[s];
@@ -382,51 +388,47 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const int* __restrict__ drows,
   const bool vec_ok = vec != 0;
 
   T a[R][V][4];
-  if constexpr (SRC == kRegisters) {
-    if constexpr (FORM == kSplit) {
-      // this thread's slots of the patch area (after the reduction buffer)
-      T* patch = reinterpret_cast<T*>(red + W * Np) + tid * (R * V * 4);
-      const unsigned touched =
-          gather_deltas<TS, T, R, V>(patch, drows, dcols, vs, nnz, row0, lane);
-      load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
+  if constexpr (FORM == kSplit) {
+    // this thread's slots of the patch area (after the reduction buffer)
+    T* patch = reinterpret_cast<T*>(red + W * Np) + tid * (R * V * 4);
+    const unsigned touched =
+        gather_deltas<TS, T, R, V>(patch, drows, dcols, vs, nnz, row0, lane);
+    load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int v = 0; v < V; ++v)
+      for (int v = 0; v < V; ++v)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int slot = (r * V + v) * 4 + e;
-            if ((touched >> slot) & 1u)
-              a[r][v][e] = round_to((const TS*)nullptr,
-                                    add_rn(a[r][v][e], patch[slot]));
-          }
-    } else {
-      load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
-    }
+        for (int e = 0; e < 4; ++e) {
+          const int slot = (r * V + v) * 4 + e;
+          if ((touched >> slot) & 1u)
+            a[r][v][e] = round_to((const TS*)nullptr,
+                                  add_rn(a[r][v][e], patch[slot]));
+        }
+  } else {
+    load_tile<TS, T, R, V>(a, Ag, M, N, row0, 0, lane, vec_ok);
   }
   __syncthreads();
 
   for (int step = 0; step < n_steps; ++step) {
     // A^T y: this warp's partial column sums -> red[warp][:]
-    for (int ct = 0; ct < n_ct; ++ct) {
+    {
       T acc[V][4];
 #pragma unroll
       for (int v = 0; v < V; ++v)
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[v][k] = T(0);
-      for (int rt = 0; rt < n_rt; ++rt) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const T yr = y[rt * RT + row0 + r];
+      for (int r = 0; r < R; ++r) {
+        const T yr = y[row0 + r];
 #pragma unroll
-          for (int v = 0; v < V; ++v)
+        for (int v = 0; v < V; ++v)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) acc[v][k] = mad(a[r][v][k], yr, acc[v][k]);
-        }
+          for (int k = 0; k < 4; ++k) acc[v][k] = mad(a[r][v][k], yr, acc[v][k]);
       }
 #pragma unroll
       for (int v = 0; v < V; ++v)
-        store4(red + warp * Np + ct * CT + 4 * (lane + 32 * v), acc[v]);
+        store4(red + warp * Np + 4 * (lane + 32 * v), acc[v]);
     }
     __syncthreads();
     // primal update, one thread per column
@@ -443,25 +445,22 @@ pdhg_chunk_tiled(const TS* __restrict__ A, const int* __restrict__ drows,
     }
     __syncthreads();
     // A xt: this thread's row sums, reduce-scatter, dual update
-    for (int rt = 0; rt < n_rt; ++rt) {
+    {
       T acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = T(0);
-      for (int ct = 0; ct < n_ct; ++ct) {
-        T xv[V][4];
+      T xv[V][4];
+#pragma unroll
+      for (int v = 0; v < V; ++v) load4(xt + 4 * (lane + 32 * v), xv[v]);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int v = 0; v < V; ++v)
-          load4(xt + ct * CT + 4 * (lane + 32 * v), xv[v]);
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int v = 0; v < V; ++v)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) acc[r] = mad(a[r][v][k], xv[v][k], acc[r]);
-      }
+          for (int k = 0; k < 4; ++k) acc[r] = mad(a[r][v][k], xv[v][k], acc[r]);
       int rr = 0;
       const T ax = reduce_scatter<T, R>(acc, lane, rr);
-      const int i = rt * RT + row0 + rr;
+      const int i = row0 + rr;
       if ((lane & (32 / R - 1)) == 0 && i < M) {
         const T vi = add_rn(y[i], mul_rn(sig, ax));
         const T zc = clip(div_rn(vi, sig), rl[i], rh[i]);
@@ -732,7 +731,7 @@ pdhg_chunk_cluster(const TS* __restrict__ A, const int* __restrict__ drows,
                    const T* __restrict__ tau, const T* __restrict__ sigma,
                    T* __restrict__ xo, T* __restrict__ yo,
                    T* __restrict__ xso, T* __restrict__ yso, int M, int N,
-                   int n_steps, int C, int stage_rows) {
+                   int n_steps, int C, int stage_rows, int per_base) {
   constexpr int NT = kClusterThreads;
   cg::cluster_group cluster = cg::this_cluster();
   const int s = blockIdx.x / C;
@@ -783,8 +782,10 @@ pdhg_chunk_cluster(const TS* __restrict__ A, const int* __restrict__ drows,
     ysum[i] = T(0);
   }
   // this block's band of its scenario's matrix (the shared and split
-  // forms: of the one shared matrix)
-  const TS* Ag = (FORM == kDense ? A + (size_t)s * (size_t)M * (size_t)N : A) +
+  // forms: of the matrix of the scenario's request, the one shared
+  // matrix when per_base = S)
+  const TS* Ag = A + (size_t)(FORM == kDense ? s : s / per_base) *
+                         (size_t)M * (size_t)N +
                  (size_t)r0 * (size_t)N;
   const TS* vs = FORM == kSplit ? dvals + (size_t)s * (size_t)nnz : dvals;
   const int passes = n_steps > 0 ? n_steps + 1 : 0;
@@ -960,13 +961,13 @@ pdhg_chunk_cluster(const TS* __restrict__ A, const int* __restrict__ drows,
 
 // dynamic shared memory of one block of the tiled kernel
 // (ops/pdhg_chunk.py Variant.smem_bytes)
-template <typename TS, typename T, int R, int V, int W, int SRC, int FORM>
+template <typename TS, typename T, int R, int V, int W, int FORM>
 size_t smem_bytes(int M, int N) {
   const size_t RT = (size_t)R * W, CT = (size_t)128 * V;
   const size_t Mp = ((size_t)M + RT - 1) / RT * RT;
   const size_t Np = ((size_t)N + CT - 1) / CT * CT;
   size_t b = ((7 + (size_t)W) * Np + 4 * Mp) * sizeof(T);
-  if (SRC == kRegisters && FORM == kSplit)
+  if (FORM == kSplit)
     b += (size_t)32 * W * R * V * 4 * sizeof(T);
   return b;
 }
@@ -976,18 +977,17 @@ struct Args {
   int nnz;
   const void *cs, *qs, *lb, *ub, *rlo, *rhi, *x, *y, *tau, *sigma;
   void *xo, *yo, *xso, *yso;
-  int S, M, N, n_steps;
+  int S, M, N, n_steps, per_base;
   cudaStream_t stream;
 };
 
 // Launch one variant of the tiled kernel, or (occupancy != nullptr)
 // report its blocks per SM and the clusters of one block that fit on
 // the card at these shapes.
-template <typename TS, typename T, int R, int V, int W, int SRC, int FORM,
-          int MINB>
+template <typename TS, typename T, int R, int V, int W, int FORM, int MINB>
 int run(const Args& g, int* occupancy) {
-  auto kernel = pdhg_chunk_tiled<TS, T, R, V, W, SRC, FORM, MINB>;
-  const size_t smem = smem_bytes<TS, T, R, V, W, SRC, FORM>(g.M, g.N);
+  auto kernel = pdhg_chunk_tiled<TS, T, R, V, W, FORM, MINB>;
+  const size_t smem = smem_bytes<TS, T, R, V, W, FORM>(g.M, g.N);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1010,7 +1010,7 @@ int run(const Args& g, int* occupancy) {
       (const TS*)g.vals, g.nnz, (const T*)g.cs, (const T*)g.qs, (const T*)g.lb,
       (const T*)g.ub, (const T*)g.rlo, (const T*)g.rhi, (const T*)g.x,
       (const T*)g.y, (const T*)g.tau, (const T*)g.sigma, (T*)g.xo,
-      (T*)g.yo, (T*)g.xso, (T*)g.yso, g.M, g.N, g.n_steps, vec);
+      (T*)g.yo, (T*)g.xso, (T*)g.yso, g.M, g.N, g.n_steps, vec, g.per_base);
   return (int)cudaGetLastError();
 }
 
@@ -1059,25 +1059,25 @@ int run_cluster(const Args& g, int C, int stage_rows, int* occupancy) {
       (const T*)g.lb, (const T*)g.ub, (const T*)g.rlo, (const T*)g.rhi,
       (const T*)g.x, (const T*)g.y, (const T*)g.tau, (const T*)g.sigma,
       (T*)g.xo, (T*)g.yo, (T*)g.xso, (T*)g.yso, g.M, g.N, g.n_steps, C,
-      stage_rows);
+      stage_rows, g.per_base);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// (rows per thread R, column vectors per lane V, warps W, source of A,
-// form of A, min blocks per SM for __launch_bounds__): the variants of
-// the tiled kernel, A held in registers, that
+// (rows per thread R, column vectors per lane V, warps W, form of A, min
+// blocks per SM for __launch_bounds__): the variants of the tiled
+// kernel, A held in registers, that
 // ops/pdhg_chunk.py::pick_variant and pick_route can choose, per compute
 // type.  The register tile holds 32 values a thread: 64 registers in
 // f32, so 4 blocks fit on an SM; 128 in f64, 2 blocks.
-#define PDHG_F32_VARIANTS(X)           \
-  X(8, 1, 8, kRegisters, kDense, 4)    \
-  X(8, 1, 8, kRegisters, kSharedA, 4)  \
-  X(8, 1, 8, kRegisters, kSplit, 4)
-#define PDHG_F64_VARIANTS(X)           \
-  X(8, 1, 8, kRegisters, kDense, 2)    \
-  X(8, 1, 8, kRegisters, kSharedA, 2)  \
-  X(8, 1, 8, kRegisters, kSplit, 2)
+#define PDHG_F32_VARIANTS(X) \
+  X(8, 1, 8, kDense, 4)      \
+  X(8, 1, 8, kSharedA, 4)    \
+  X(8, 1, 8, kSplit, 4)
+#define PDHG_F64_VARIANTS(X) \
+  X(8, 1, 8, kDense, 2)      \
+  X(8, 1, 8, kSharedA, 2)    \
+  X(8, 1, 8, kSplit, 2)
 // (source of A, form of A): the cluster kernel's instantiations, per
 // storage type.  The shared and split forms reach the resident source
 // only through pick_route (a shared matrix that one block cannot hold
@@ -1094,11 +1094,12 @@ int run_cluster(const Args& g, int C, int stage_rows, int* occupancy) {
 template <typename TS, typename T>
 int dispatch(const Args& g, int form, int R, int V, int W, int src, int C,
              int stage_rows, int* occupancy) {
-  if (g.S <= 0 || g.M <= 0 || g.N <= 0 || g.n_steps < 0 || g.nnz < 0)
+  if (g.S <= 0 || g.M <= 0 || g.N <= 0 || g.n_steps < 0 || g.nnz < 0 ||
+      g.per_base <= 0 || g.S % g.per_base != 0)
     return (int)cudaErrorInvalidValue;
-#define PDHG_TRY(r, v, w, sr, fm, mb)                              \
-  if (R == r && V == v && W == w && src == sr && form == fm)       \
-    return run<TS, T, r, v, w, sr, fm, mb>(g, occupancy);
+#define PDHG_TRY(r, v, w, fm, mb)                                     \
+  if (R == r && V == v && W == w && src == kRegisters && form == fm)  \
+    return run<TS, T, r, v, w, fm, mb>(g, occupancy);
   if constexpr (sizeof(T) == 4) {
     PDHG_F32_VARIANTS(PDHG_TRY)
   } else {
@@ -1119,10 +1120,10 @@ Args make_args(const void* A, const void* rows, const void* cols,
                const void* rhi, const void* x, const void* y,
                const void* tau, const void* sigma, void* xo, void* yo,
                void* xso, void* yso, int S, int M, int N, int n_steps,
-               void* stream) {
-  return Args{A,   rows, cols, vals, nnz, cs,  qs,  lb, ub, rlo,
-              rhi, x,    y,    tau,  sigma, xo, yo, xso, yso, S,
-              M,   N,    n_steps, (cudaStream_t)stream};
+               int per_base, void* stream) {
+  return Args{A,   rows, cols, vals, nnz, cs,  qs,      lb,       ub,
+              rlo, rhi,  x,    y,    tau, sigma, xo,    yo,       xso,
+              yso, S,    M,    N,    n_steps, per_base, (cudaStream_t)stream};
 }
 
 }  // namespace
@@ -1130,13 +1131,16 @@ Args make_args(const void* A, const void* rows, const void* cols,
 extern "C" {
 
 // A (or the split form's shared block), rows, cols, vals, nnz, form
-// (0 dense, 1 shared, 2 split), the vectors, the outputs, the sizes, the
+// (0 dense, 1 shared, 2 split), the scenarios that read one matrix of
+// the shared and split forms' A (per_base: S for one matrix; the dense
+// form does not read it), the vectors, the outputs, the sizes, the
 // variant (R, V, W of the tiled kernel; source 0 registers, 1 resident,
 // 2 streamed; cluster size and stage rows of the cluster kernel) and
 // the stream.
 #define PDHG_ENTRY(name, TS, T)                                              \
   int name(const void* A, const void* rows, const void* cols,               \
-           const void* vals, int nnz, int form, const void* cs,             \
+           const void* vals, int nnz, int form, int per_base,               \
+           const void* cs,                                                  \
            const void* qs, const void* lb, const void* ub, const void* rlo, \
            const void* rhi, const void* x, const void* y, const void* tau,  \
            const void* sigma, void* xo, void* yo, void* xso, void* yso,     \
@@ -1144,7 +1148,8 @@ extern "C" {
            int C, int stage_rows, void* stream) {                           \
     return dispatch<TS, T>(                                                 \
         make_args(A, rows, cols, vals, nnz, cs, qs, lb, ub, rlo, rhi, x, y, \
-                  tau, sigma, xo, yo, xso, yso, S, M, N, n_steps, stream),  \
+                  tau, sigma, xo, yo, xso, yso, S, M, N, n_steps, per_base, \
+                  stream),                                                  \
         form, R, V, W, src, C, stage_rows, nullptr);                        \
   }
 
@@ -1162,7 +1167,7 @@ int pdhg_chunk_occupancy(int kind, int form, int R, int V, int W, int src,
   const Args g = make_args(nullptr, nullptr, nullptr, nullptr, 0, nullptr,
                            nullptr, nullptr, nullptr, nullptr, nullptr,
                            nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, nullptr, 1, M, N, 0, nullptr);
+                           nullptr, nullptr, nullptr, 1, M, N, 0, 1, nullptr);
   out[0] = out[1] = 0;
   int rc = (int)cudaErrorInvalidValue;
   if (kind == 0)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
+import weakref
 from typing import Any
 
 import numpy as np
@@ -171,7 +172,19 @@ class SplitA:
 
     @property
     def shape(self):
-        return (self.vals.shape[0],) + tuple(self.shared.shape)
+        return (self.vals.shape[0],) + tuple(self.shared.shape[-2:])
+
+    @property
+    def bases(self):
+        """Shared blocks stored: 1 for a (M, N) block; B for a grouped
+        (B, M, N) stack, one block per request of a coalesced group
+        whose per_base consecutive scenarios share it."""
+        return 1 if self.shared.dim() == 2 else self.shared.shape[0]
+
+    @property
+    def per_base(self):
+        """Consecutive scenarios that read one shared block."""
+        return self.vals.shape[0] // self.bases
 
     @property
     def dtype(self):
@@ -203,7 +216,10 @@ class SplitA:
 
     def scale_shared(self, row_mult, col_mult):
         """diag(row_mult) @ shared @ diag(col_mult), in the storage that
-        `shared` uses (dense here)."""
+        `shared` uses (dense here); a grouped block takes (B, M) and
+        (B, N) multipliers, one row each."""
+        if self.shared.dim() == 3:
+            return self.shared * row_mult[:, :, None] * col_mult[:, None, :]
         return self.shared * row_mult[:, None] * col_mult[None, :]
 
     def shared_dense(self):
@@ -215,7 +231,11 @@ class SplitA:
         the storage dtype) as the JAX `.at[].add` does."""
         dt = self.dtype if dtype is None else dtype
         S, M, N = self.shape
-        A = self.shared_dense().to(dt)[None].expand(S, M, N).clone()
+        sh = self.shared_dense().to(dt)
+        if sh.dim() == 3:
+            A = sh.repeat_interleave(self.per_base, dim=0)
+        else:
+            A = sh[None].expand(S, M, N).clone()
         nnz = self.rows.shape[0]
         s_idx = torch.arange(S, device=A.device)[:, None].expand(S, nnz)
         A.index_put_((s_idx, self.rows.long()[None].expand(S, nnz),
@@ -224,11 +244,16 @@ class SplitA:
         return A
 
     def shared_matvec(self, x):
-        """x @ shared.T: (S, N) -> (S, M)."""
+        """x @ shared.T: (S, N) -> (S, M); a grouped block is one batched
+        product over its bases."""
+        if self.shared.dim() == 3:
+            return _grouped_matvec(self.shared, x)
         return x @ self.shared.T
 
     def shared_rmatvec(self, y):
         """y @ shared: (S, M) -> (S, N)."""
+        if self.shared.dim() == 3:
+            return _grouped_rmatvec(self.shared, y)
         return y @ self.shared
 
 
@@ -279,6 +304,44 @@ class SparseSplitA(SplitA):
         return float(self.shared.values().numel()) / float(max(M * N, 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupedA:
+    """The shared matrices of a coalesced group of B requests of one
+    bucket (serve/; built by `phbase.stack_preps`): request b owns the
+    `per_base` consecutive scenarios b * per_base .. and reads
+    stack[b].  The grouping is stated, never read off a shape: a plain
+    (SA, M, N) tensor is one shared matrix (SA = 1) or one matrix a
+    scenario (SA = S)."""
+
+    stack: Any     # (B, M, N) one matrix a request
+    per_base: int  # scenarios of one request
+
+    @property
+    def bases(self):
+        return self.stack.shape[0]
+
+    @property
+    def shape(self):
+        return (self.bases * self.per_base,) + tuple(self.stack.shape[1:])
+
+    @property
+    def dtype(self):
+        return self.stack.dtype
+
+    @property
+    def device(self):
+        return self.stack.device
+
+    def to(self, device):
+        return dataclasses.replace(self, stack=self.stack.to(device))
+
+    def astype(self, dt):
+        return dataclasses.replace(self, stack=self.stack.to(dt))
+
+    def contiguous(self):
+        return dataclasses.replace(self, stack=self.stack.contiguous())
+
+
 def _sparse_bf16_refused():
     return not_ported("bfloat16 storage of a sparse shared block "
                       "(SparseSplitA: torch's sparse product has no "
@@ -324,25 +387,99 @@ def delta_idx(batch):
     return meta.get("A_delta_idx")
 
 
+def _grouped_matvec(A, x):
+    """x (S, N) against a grouped (B, M, N) stack whose S / B
+    consecutive scenarios share one matrix: one batched product."""
+    B, M, N = A.shape
+    return torch.bmm(x.reshape(B, -1, N), A.transpose(1, 2)).reshape(-1, M)
+
+
+def _grouped_rmatvec(A, y):
+    B, M, N = A.shape
+    return torch.bmm(y.reshape(B, -1, M), A).reshape(-1, N)
+
+
+def grouped_bases(A, S):
+    """Matrices stored by an operator of S scenarios: 1 for a shared
+    matrix or a SplitA's (M, N) block, B for a GroupedA or a SplitA
+    with a (B, M, N) block (a coalesced group), S for a dense batch."""
+    if isinstance(A, (SplitA, GroupedA)):
+        return A.bases
+    return 1 if A.shape[0] == 1 else S
+
+
+# index -> its collision-free layers on the card (see _ordered_index_add)
+_LAYERS = {}
+
+
+def _index_layers(index):
+    """`index` split into layers in which no value repeats: layer j
+    holds the j-th occurrence of every value, in the order of first
+    appearance.  Cached for the life of the index tensor (one host copy
+    a coordinate vector)."""
+    key = id(index)
+    hit = _LAYERS.get(key)
+    if hit is not None and hit[0]() is index:
+        return hit[1]
+    ix = index.detach().cpu().long().numpy()
+    seen = {}
+    occ = np.empty(ix.shape[0], np.int64)
+    for k, v in enumerate(ix.tolist()):
+        occ[k] = seen.get(v, 0)
+        seen[v] = occ[k] + 1
+    layers = []
+    for j in range(int(occ.max(initial=-1)) + 1):
+        pos = np.nonzero(occ == j)[0]
+        layers.append((torch.as_tensor(pos, device=index.device),
+                       torch.as_tensor(ix[pos], device=index.device)))
+    _LAYERS[key] = (weakref.ref(index, lambda _r, k=key: _LAYERS.pop(k,
+                                                                     None)),
+                    layers)
+    return layers
+
+
+def _ordered_index_add(out, index, src):
+    """out[:, index[k]] += src[:, k] for every k.  On the CPU
+    `index_add_` sums a repeated index in k order.  On CUDA `index_add_`
+    adds a repeated index with atomics in no fixed order, so a sum could
+    differ in its last bits from run to run; there the additions go
+    layer by layer (`_index_layers`), each layer an `index_add_` without
+    repeats, so that the card gives the same bits run after run (not
+    necessarily the CPU's)."""
+    if out.device.type != "cuda":
+        return out.index_add_(1, index, src)
+    layers = _index_layers(index)
+    if len(layers) == 1:
+        return out.index_add_(1, index, src)
+    for pos, ix in layers:
+        out.index_add_(1, ix, src[:, pos])
+    return out
+
+
 def bmatvec(A, x):
     """Batched A @ x: A (SA, M, N) with SA == S or SA == 1 (shared
-    constraint matrix), or a SplitA; x (S, N) -> (S, M).  The SplitA
-    form is the shared product plus an `index_add_` of the deltas; on
-    CUDA `index_add_` adds a repeated index with atomics, in no fixed
-    order, so such sums may differ by a few ulp from run to run."""
+    constraint matrix), a GroupedA (one batched product over its
+    matrices) or a SplitA; x (S, N) -> (S, M).  The SplitA form is the
+    shared product plus the deltas' ordered index add (the same bits
+    run after run on CUDA too)."""
     if isinstance(A, SplitA):
         out = A.shared_matvec(x).contiguous()
-        return out.index_add_(1, A.rows, A.vals * x[:, A.cols])
+        return _ordered_index_add(out, A.rows, A.vals * x[:, A.cols])
+    if isinstance(A, GroupedA):
+        return _grouped_matvec(A.stack, x)
     if A.shape[0] == 1:
         return x @ A[0].T
     return torch.einsum("smn,sn->sm", A, x)
 
 
 def bmatvec_t(A, y):
-    """Batched A^T @ y: A (SA, M, N) or SplitA, y (S, M) -> (S, N)."""
+    """Batched A^T @ y: A (SA, M, N), GroupedA or SplitA, y (S, M) ->
+    (S, N)."""
     if isinstance(A, SplitA):
         out = A.shared_rmatvec(y).contiguous()
-        return out.index_add_(1, A.cols, A.vals * y[:, A.rows])
+        return _ordered_index_add(out, A.cols, A.vals * y[:, A.rows])
+    if isinstance(A, GroupedA):
+        return _grouped_rmatvec(A.stack, y)
     if A.shape[0] == 1:
         return y @ A[0]
     return torch.einsum("smn,sm->sn", A, y)
@@ -352,12 +489,14 @@ def node_segment_sum(node_of, num_nodes):
     """Per-(tree node, nonant slot) segment reduction (ir.py:412-436).
 
     The (node, slot) pair is one segment key (flatid = node_of * K +
-    slot); a reduction over a (S, K) array scatter-adds into the
-    num_nodes*K segments with `index_add_`, then gathers back to
-    scenario layout.  Returns (flatid (S, K), segsum) where
-    segsum(v: (S, K)) -> (S, K) holds each element's segment total.
-    On CUDA `index_add_` accumulates with atomics, so the order of the
-    floating-point additions may vary from run to run."""
+    slot); a reduction over a (S, K) array adds into the num_nodes*K
+    segments, then gathers back to scenario layout.  Returns (flatid
+    (S, K), segsum) where segsum(v: (S, K)) -> (S, K) holds each
+    element's segment total.  On the CPU `index_add_` adds each
+    segment's elements in scenario order.  On CUDA `index_add_` adds
+    with atomics, in no fixed order; there the sum is `index_put_` with
+    accumulate, which gives the same bits run after run on the card
+    (measured), though not necessarily the CPU's order of addition."""
     K = node_of.shape[1]
     cols = torch.arange(K, device=node_of.device).expand(node_of.shape)
     flatid = node_of.long() * K + cols
@@ -366,7 +505,10 @@ def node_segment_sum(node_of, num_nodes):
 
     def segsum(v):
         z = torch.zeros((size,), dtype=v.dtype, device=v.device)
-        z.index_add_(0, fl, v.reshape(-1))
+        if v.device.type == "cuda":
+            z.index_put_((fl,), v.reshape(-1), accumulate=True)
+        else:
+            z.index_add_(0, fl, v.reshape(-1))
         return z[flatid]
 
     return flatid, segsum

@@ -52,7 +52,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ir import SplitA, node_segment_sum
+from ..ir import GroupedA, SplitA, node_segment_sum
 from ..ir import bmatvec as _Ax
 from ..ir import bmatvec_t as _ATy
 from ..utils.solver_spec import option_string_to_dict
@@ -78,7 +78,7 @@ class PreparedBatch:
     shared or split prep keeps one scaling for every scenario: A is
     (1, M, N) or a SplitA, d_row (1, M), d_col (1, N) and, for a shared
     A, anorm (1,)."""
-    A: Any        # (S, M, N), (1, M, N) or SplitA, scaled: D_r A D_c
+    A: Any        # (S, M, N), (1, M, N), GroupedA or SplitA: D_r A D_c
     row_lo: Any   # (S, M) scaled: D_r * row_lo
     row_hi: Any   # (S, M)
     d_row: Any    # (S, M) or (1, M) row scaling D_r
@@ -127,6 +127,9 @@ class SolveResult:
     converged: Any  # (S,) bool
     iters: int      # iterations used (max across batch)
     restarts: Any = 0  # (S,) int restart events per scenario
+    # (S,) KKT checks each scenario ran until it converged (all of them
+    # when it did not); kept only when the solve is asked per scenario
+    checks: Any = None
 
 
 # --------------------------------------------------------------------------
@@ -314,18 +317,30 @@ def reprep_row_bounds(prep: PreparedBatch, row_lo, row_hi):
 
 def _unscale_A(A, dr, dc):
     """User-space view of a scaled constraint operator, in its own form
-    (a SplitA's shared block is rescaled into a new tensor)."""
+    (a SplitA's shared block is rescaled into a new tensor).  A
+    coalesced group's B matrices take the scaling of the first scenario
+    of each request (one scaling a request)."""
     if isinstance(A, SplitA):
+        if A.bases > 1:
+            pb = A.per_base
+            shared = A.scale_shared(1.0 / dr[::pb], 1.0 / dc[::pb])
+        else:
+            shared = A.scale_shared(1.0 / dr[0], 1.0 / dc[0])
         return dataclasses.replace(
-            A, shared=A.scale_shared(1.0 / dr[0], 1.0 / dc[0]),
+            A, shared=shared,
             vals=A.vals / (dr[:, A.rows] * dc[:, A.cols]))
+    if isinstance(A, GroupedA):
+        pb = A.per_base
+        return dataclasses.replace(
+            A, stack=A.stack / dr[::pb, :, None] / dc[::pb, None, :])
     return A / dr[:, :, None] / dc[:, None, :]
 
 
 def _cast_A(A, dt):
     """Storage-dtype cast of a constraint operator (SplitA.astype keeps
     its subclass)."""
-    return A.astype(dt) if isinstance(A, SplitA) else A.to(dt)
+    return (A.astype(dt) if isinstance(A, (SplitA, GroupedA))
+            else A.to(dt))
 
 
 # --------------------------------------------------------------------------
@@ -645,7 +660,14 @@ class PDHGSolver:
 
     # -- impl --------------------------------------------------------
     def _solve_impl(self, prep, c, qdiag, lb, ub, obj_const, x0, y0,
-                    consensus=None, eps=None, iters_cap=None):
+                    consensus=None, eps=None, iters_cap=None,
+                    per_scenario=False):
+        """The solve.  `eps` is None (the solver's), a float, or an (S,)
+        tensor of per-scenario tolerances (a coalesced group of requests,
+        each with its own); `per_scenario` keeps `SolveResult.checks`,
+        from which a group's requests read their own iteration counts.
+        Every scenario's iterates depend on its own data alone, so a
+        request solved inside a group follows the same steps as alone."""
         dc, dr = prep.d_col, prep.d_row
         # scale into solver space, in the caller's precision
         cs = c * dc
@@ -678,6 +700,11 @@ class PDHGSolver:
         if eps is None:
             eps = max(self.eps, floor)
             eps_out = eps
+        elif torch.is_tensor(eps):
+            # per scenario: the scalar rule below, element by element
+            # (floor is exact in both dtypes)
+            eps_out = torch.clamp(eps.to(out_dt), min=floor)
+            eps = eps_out.to(cs.dtype)
         else:
             eps_out = max(round_to_dtype(eps, out_dt), floor)
             eps = round_to_dtype(eps_out, cs.dtype)
@@ -751,6 +778,8 @@ class PDHGSolver:
         score_cand_prev = torch.full((S,), float("inf"), dtype=cs.dtype,
                                      device=dev)
         restarts = torch.zeros((S,), dtype=torch.int32, device=dev)
+        checks = (torch.zeros((S,), dtype=torch.int32, device=dev)
+                  if per_scenario else None)
         k = 0
         # one host sync per KKT check (the JAX while_loop's cond)
         while k < cap_outer and not bool(torch.all(converged)):
@@ -766,6 +795,8 @@ class PDHGSolver:
             y_best = torch.where(fresh, yn, y_best)
             k += 1
             cycle = cycle + 1
+            if checks is not None:
+                checks = torch.where(converged, checks, k)
 
             # restart candidate: the better of {current, cycle average}
             xa = x_sum / nsum[:, None]
@@ -854,7 +885,7 @@ class PDHGSolver:
             pres=pres, dres=dres, gap=gap,
             converged=converged | ((pres < eps_out) & (dres < eps_out)
                                    & (gap < eps_out)),
-            iters=k * ne, restarts=restarts)
+            iters=k * ne, restarts=restarts, checks=checks)
 
 
 # the SolveResult fields solve_compacted scatters back per segment

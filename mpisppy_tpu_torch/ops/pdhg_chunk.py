@@ -22,6 +22,13 @@ with its own plain version beside it:
 * "split": an `ir.SplitA`, a shared (M, N) block plus per-scenario
   deltas at (rows, cols) (`fused_chunk_split_reference`).
 
+The shared and split forms may also hold B matrices, one for each
+request of a coalesced group (serve/): an `ir.GroupedA`, or a SplitA
+whose shared block is (B, M, N), the S / B consecutive scenarios of a
+request reading its matrix (one launch for the whole group; the kernel
+reads matrix s / per_base, per_base = S for one matrix).  Their plain
+versions loop over the group.
+
 The kernel builds the same per-scenario tile from each form, so the
 shared and split forms give the dense kernel's result on
 `A.to_dense()` bit for bit.  A is stored in float32, float64 or
@@ -44,8 +51,9 @@ for its query).
 
 `launches` counts kernel launches (never plain-version calls),
 `launch_shapes` the same by (form, S, M, N, dtype of A) and
-`variant_launches` by those and the source of A and cluster size, so a
-run can show that its solves went through the kernel, in which forms,
+`variant_launches` by those and the source of A and cluster size,
+`grouped_launches` the launches of a group of more than one matrix by
+(form, S, M, N, dtype, matrices), so a run can show that its solves went through the kernel, in which forms,
 with which shapes and through which of its two kernels (`launches_by`
 sums them by form or dtype).  All are bumped under a lock: the wheel's
 spoke threads launch concurrently.
@@ -66,7 +74,7 @@ from pathlib import Path
 
 import torch
 
-from ..ir import SparseSplitA, SplitA
+from ..ir import GroupedA, SparseSplitA, SplitA, grouped_bases
 
 #: number of CUDA kernel launches made by `fused_chunk` in this process
 launches = 0
@@ -76,6 +84,9 @@ launch_shapes = collections.Counter()
 #: cluster size): which kernel (the tiled one for "registers", the
 #: cluster one otherwise) each went through
 variant_launches = collections.Counter()
+#: the launches whose shared or split form held more than one matrix,
+#: by (form, S, M, N, dtype name of A, matrices)
+grouped_launches = collections.Counter()
 # the wheel's threads mode launches from several host threads at once;
 # a bare `+= 1` can lose counts there
 _COUNT_LOCK = threading.Lock()
@@ -274,29 +285,38 @@ def operator_form(A, S):
     "dense" ((S, M, N) with S > 1), "shared" (any (1, M, N) tensor, S = 1
     included: the form follows the operator's shape, so a shared matrix
     beyond the tile takes the matmul route whatever number of scenarios
-    is left to solve on it), "split" (a dense-shared SplitA) or "sparse"
-    (a SparseSplitA, which only the matmul route takes)."""
+    is left to solve on it; and a coalesced group's GroupedA), "split"
+    (a dense-shared SplitA) or "sparse" (a SparseSplitA, which only the
+    matmul route takes)."""
     if isinstance(A, SparseSplitA):
         return "sparse"
     if isinstance(A, SplitA):
         return "split"
-    if A.dim() == 3 and A.shape[0] == 1:
+    if isinstance(A, GroupedA) or (A.dim() == 3 and A.shape[0] == 1):
         return "shared"
     return "dense"
+
+
+def route_state_bytes(M, N, dtype):
+    """The block state that the route rule charges beyond the register
+    tile: 15 values a column over columns padded to 128 and 4 values a
+    row over rows padded to 32, in the compute type (the state of the
+    kernel's first shared-memory sources, kept as the rule's limit so
+    that no route changed when the cluster kernel replaced them)."""
+    cb = compute_dtype(dtype).itemsize
+    return (15 * (-(-N // 128) * 128) + 4 * (-(-M // 32) * 32)) * cb
 
 
 def pick_route(form, M, N, dtype, smem_optin=H100_SMEM_OPTIN):
     """"kernel" or "matmul": where a solve runs the chunks of an
     operator of `form` with M rows and N columns stored in `dtype`.  A
-    shape within the register tile takes the kernel.  Beyond it the rule
-    keeps the limits it was set with, on a block's state over 128-column
-    and 32-row padding, (15 Np + 4 Mp) values: a dense per-scenario A
-    takes the kernel while that state fits `smem_optin`, the matmul
-    route beyond; a shared or split A takes the kernel while one block
-    holds the whole matrix beside that state, and the matmul route
-    otherwise, where a matrix product reuses the shared matrix across
-    scenarios.  A sparse shared block always takes the matmul route
-    (torch's sparse product)."""
+    shape within the register tile takes the kernel.  Beyond it: a dense
+    per-scenario A takes the kernel while `route_state_bytes` fits
+    `smem_optin`, the matmul route beyond; a shared or split A takes the
+    kernel while one block holds its whole matrix beside that state, and
+    the matmul route otherwise, where a matrix product reuses the
+    shared matrix across scenarios.  A sparse shared block always takes
+    the matmul route (torch's sparse product)."""
     if form not in FORMS + ("sparse",):
         raise ValueError(f"pick_route: unknown operator form {form!r}")
     if form == "sparse":
@@ -307,7 +327,7 @@ def pick_route(form, M, N, dtype, smem_optin=H100_SMEM_OPTIN):
     if M <= REGISTER_TILE.tile_rows and N <= REGISTER_TILE.tile_cols:
         fits = REGISTER_TILE.smem_bytes(M, N, cb, sb) <= smem_optin
         return "kernel" if fits else "matmul"
-    state = (15 * (-(-N // 128) * 128) + 4 * (-(-M // 32) * 32)) * cb
+    state = route_state_bytes(M, N, dtype)
     if form != "dense":
         state += M * N * sb
     return "kernel" if state <= smem_optin else "matmul"
@@ -375,7 +395,7 @@ def load_library():
             ptr, cint = ctypes.c_void_p, ctypes.c_int
             for name in _ENTRY.values():
                 fn = getattr(lib, name)
-                fn.argtypes = ([ptr] * 4 + [cint] * 2 + [ptr] * 14
+                fn.argtypes = ([ptr] * 4 + [cint] * 3 + [ptr] * 14
                                + [cint] * 10 + [ptr])
                 fn.restype = ctypes.c_int
             lib.pdhg_chunk_occupancy.argtypes = [cint] * 10 + [ptr]
@@ -456,11 +476,13 @@ def _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
         for k in ("shared", "rows", "cols", "vals"):
             if not isinstance(getattr(A, k), torch.Tensor):
                 raise TypeError(f"fused_chunk: A.{k} must be a tensor")
-        if A.shared.dim() != 2 or A.rows.dim() != 1 \
+        if A.shared.dim() not in (2, 3) or A.rows.dim() != 1 \
                 or A.cols.shape != A.rows.shape \
-                or tuple(A.vals.shape) != (S, A.rows.shape[0]):
-            raise ValueError("fused_chunk: a SplitA needs shared (M, N), "
-                             "rows and cols (nnz,) and vals (S, nnz)")
+                or tuple(A.vals.shape) != (S, A.rows.shape[0]) \
+                or S % A.bases:
+            raise ValueError("fused_chunk: a SplitA needs shared (M, N) "
+                             "or (B, M, N) with B dividing S, rows and "
+                             "cols (nnz,) and vals (S, nnz)")
         if A.rows.dtype != torch.int32 or A.cols.dtype != torch.int32:
             raise TypeError("fused_chunk: SplitA rows and cols must be "
                             "int32")
@@ -468,9 +490,16 @@ def _check(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps):
             raise TypeError("fused_chunk: SplitA vals and shared must "
                             "share one dtype")
         ts.update(shared=A.shared, rows=A.rows, cols=A.cols, vals=A.vals)
+    elif isinstance(A, GroupedA):
+        if not isinstance(A.stack, torch.Tensor) or A.stack.dim() != 3 \
+                or A.shape[0] != S:
+            raise ValueError(f"fused_chunk: a GroupedA needs a (B, M, N) "
+                             f"stack with B * per_base = S = {S}")
+        ts["A"] = A.stack
     else:
         if not isinstance(A, torch.Tensor):
-            raise TypeError("fused_chunk: A must be a tensor or a SplitA")
+            raise TypeError("fused_chunk: A must be a tensor, a GroupedA "
+                            "or a SplitA")
         if A.dim() != 3 or A.shape[0] not in (1, S):
             raise ValueError(f"fused_chunk: A must be (S, M, N) or "
                              f"(1, M, N), got {tuple(A.shape)}")
@@ -548,23 +577,46 @@ def fused_chunk_reference(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma,
     return x, y, xs, ys
 
 
+def _per_group(one, A, base_of, vectors, n_steps):
+    """A grouped form's plain version: `one` (the single-matrix plain
+    version) on each request's matrix `base_of(A, b)` and its rows of
+    the vectors, the outputs stacked back in order."""
+    S = vectors[0].shape[0]
+    B = grouped_bases(A, S)
+    pb = S // B
+    outs = [one(base_of(A, b), *[v[b * pb:(b + 1) * pb] for v in vectors],
+                n_steps) for b in range(B)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def fused_chunk_shared_reference(A, cs, qs, lb, ub, rlo, rhi, x, y, tau,
                                  sigma, n_steps):
     """The plain version of the shared form: one (1, M, N) A for every
-    scenario, run as the dense plain version on its broadcast."""
+    scenario, run as the dense plain version on its broadcast; a
+    GroupedA runs that on each request's matrix."""
+    vectors = (cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma)
+    if isinstance(A, GroupedA):
+        return _per_group(fused_chunk_shared_reference, A,
+                          lambda a, b: a.stack[b:b + 1], vectors, n_steps)
     S = cs.shape[0]
-    return fused_chunk_reference(A.expand((S,) + tuple(A.shape[1:])), cs,
-                                 qs, lb, ub, rlo, rhi, x, y, tau, sigma,
-                                 n_steps)
+    return fused_chunk_reference(A.expand((S,) + tuple(A.shape[1:])),
+                                 *vectors, n_steps)
 
 
 def fused_chunk_split_reference(A, cs, qs, lb, ub, rlo, rhi, x, y, tau,
                                 sigma, n_steps):
     """The plain version of the split form: the dense plain version on
     `A.to_dense()`, the per-scenario matrices the kernel assembles in
-    its tile."""
-    return fused_chunk_reference(A.to_dense(), cs, qs, lb, ub, rlo, rhi,
-                                 x, y, tau, sigma, n_steps)
+    its tile; a group's SplitA runs that on each request's part."""
+    vectors = (cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma)
+    if A.bases > 1:
+        pb = A.per_base
+        return _per_group(
+            fused_chunk_split_reference, A,
+            lambda a, b: dataclasses.replace(
+                a, shared=a.shared[b], vals=a.vals[b * pb:(b + 1) * pb]),
+            vectors, n_steps)
+    return fused_chunk_reference(A.to_dense(), *vectors, n_steps)
 
 
 #: each form's plain version
@@ -594,7 +646,7 @@ def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps,
                 variant=None):
     """Run `n_steps` PDHG iterations for the whole batch (solver-space
     inputs; tau/sigma are per-scenario (S,) step sizes).  A is dense
-    (S, M, N), shared (1, M, N) or a SplitA.  Returns (x, y, x_sum,
+    (S, M, N), shared (1, M, N), a GroupedA or a SplitA.  Returns (x, y, x_sum,
     y_sum) in the vectors' dtype.  `variant` (measurement and tests
     only) launches that variant instead of `pick_variant`'s, or raises
     when it cannot launch at these shapes."""
@@ -619,12 +671,17 @@ def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps,
                 A.vals.data_ptr())
         nnz = A.rows.shape[0]
     else:
-        ptrs, nnz = (A.data_ptr(), None, None, None), 0
+        stack = A.stack if isinstance(A, GroupedA) else A
+        ptrs, nnz = (stack.data_ptr(), None, None, None), 0
+    # the shared and split forms read matrix s / per_base: per_base = S
+    # for one matrix (the dense form does not read it)
+    bases = grouped_bases(A, S)
+    per_base = S // bases if form != "dense" else S
     xo, xso = torch.empty_like(x), torch.empty_like(x)
     yo, yso = torch.empty_like(y), torch.empty_like(y)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(*ptrs, nnz, FORMS.index(form), cs.data_ptr(),
+        rc = fn(*ptrs, nnz, FORMS.index(form), per_base, cs.data_ptr(),
                 qs.data_ptr(), lb.data_ptr(), ub.data_ptr(),
                 rlo.data_ptr(), rhi.data_ptr(), x.data_ptr(), y.data_ptr(),
                 tau.data_ptr(), sigma.data_ptr(), xo.data_ptr(),
@@ -642,4 +699,6 @@ def fused_chunk(A, cs, qs, lb, ub, rlo, rhi, x, y, tau, sigma, n_steps,
         launches += 1
         launch_shapes[(form, S, M, N, dname)] += 1
         variant_launches[(form, S, M, N, dname, v.source, v.cluster)] += 1
+        if form != "dense" and bases > 1:
+            grouped_launches[(form, S, M, N, dname, bases)] += 1
     return xo, yo, xso, yso

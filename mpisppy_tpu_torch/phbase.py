@@ -46,7 +46,7 @@ import torch
 
 from . import global_toc
 from .resilience.chaos import ChaosInjector
-from .ir import ScenarioBatch, SparseSplitA, node_segment_sum
+from .ir import ScenarioBatch, SparseSplitA, TreeInfo, node_segment_sum
 from .ops.pdhg import round_to_dtype
 from .spopt import SPOpt, _sync
 
@@ -165,6 +165,190 @@ def ph_superstep(solver, state: PHState, rho, W_on, prox_on,
     conv = convergence_metric(batch, x_na, xbar)
     return _next_state(state, res, W, xbar, xsqbar, conv,
                        batch.objective(res.x), batch)
+
+
+# ---- a coalesced group of same-bucket requests (serve/) -------------------
+
+class GroupRefused(ValueError):
+    """Raised when requests cannot share one group solve (operators of
+    different forms, or split deltas at different coordinates); the
+    service then runs them one by one."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupArgs:
+    """The superstep arguments of B same-bucket PH instances stacked
+    along the scenario axis: request b owns rows b*S .. (b+1)*S - 1 of
+    every (B*S, ...) tensor.  The counterpart of the JAX package's
+    vmap over a leading request axis (serve/service.py:86-120 there):
+    `state` is a PHState whose conv, active_frac and solve_restarts are
+    (B,) tensors and whose it and solve_iters are tuples; eps, W_on and
+    prox_on are each request's, per scenario."""
+    state: PHState
+    rho: Any
+    W_on: Any       # (B*S, 1)
+    prox_on: Any    # (B*S, 1)
+    lb: Any
+    ub: Any
+    eps: Any        # (B*S,) superstep tolerance of each request
+    prep: Any       # PreparedBatch over the B*S scenarios, grouped A
+    batch: ScenarioBatch
+    B: int
+    S: int
+
+
+def _rows(t, S):
+    """A per-scenario leaf with a singleton (shared) leading axis
+    expanded to S rows."""
+    return t.expand((S,) + tuple(t.shape[1:])) if t.shape[0] == 1 else t
+
+
+def stack_preps(preps, S):
+    """One PreparedBatch over the B*S scenarios of B requests: A as a
+    group of B matrices (an `ir.GroupedA`, or a SplitA with a (B, M, N)
+    shared block; dense per-scenario A's are concatenated), each
+    request's scalings and norm estimate repeated over its rows.
+    Raises GroupRefused when the operators differ in form or the split
+    deltas in their coordinates (the kernel reads one (rows, cols) for
+    the whole group; nothing is densified)."""
+    from .ir import GroupedA, SplitA
+    from .ops.pdhg import PreparedBatch
+    As = [p.A for p in preps]
+    if all(isinstance(a, SplitA) for a in As):
+        if any(isinstance(a, SparseSplitA) for a in As):
+            raise GroupRefused("a sparse shared block does not group")
+        a0 = As[0]
+        for a in As[1:]:
+            if not (torch.equal(a.rows, a0.rows)
+                    and torch.equal(a.cols, a0.cols)):
+                raise GroupRefused("split deltas at different "
+                                   "coordinates")
+        A = SplitA(shared=torch.stack([a.shared for a in As]),
+                   rows=a0.rows, cols=a0.cols,
+                   vals=torch.cat([a.vals for a in As]))
+    elif any(isinstance(a, SplitA) for a in As):
+        raise GroupRefused("split and unsplit operators in one group")
+    elif all(a.shape[0] == 1 for a in As):
+        A = GroupedA(stack=torch.cat(As), per_base=S)   # one each
+    elif all(a.shape[0] == S for a in As):
+        A = torch.cat(As)                      # dense (B*S, M, N)
+    else:
+        raise GroupRefused("shared and per-scenario operators in one "
+                           "group")
+
+    def cat(field):
+        return torch.cat([_rows(getattr(p, field), S) for p in preps])
+
+    return PreparedBatch(A=A, row_lo=cat("row_lo"), row_hi=cat("row_hi"),
+                         d_row=cat("d_row"), d_col=cat("d_col"),
+                         anorm=cat("anorm"))
+
+
+def stack_batches(batches):
+    """The B batches' per-scenario fields concatenated, each request's
+    tree nodes offset so that its x̄ averages over its own scenarios
+    (A is left out: the group's operator lives in its prep)."""
+    b0 = batches[0]
+    nn = b0.tree.num_nodes
+
+    def cat(field):
+        vals = [getattr(b, field) for b in batches]
+        return None if vals[0] is None else torch.cat(vals)
+
+    tree = TreeInfo(
+        node_of=torch.cat([b.tree.node_of + i * nn
+                           for i, b in enumerate(batches)]),
+        prob=torch.cat([b.tree.prob for b in batches]),
+        num_nodes=nn * len(batches), stage_of=b0.tree.stage_of,
+        nonant_names=b0.tree.nonant_names,
+        scen_names=tuple(n for b in batches for n in b.tree.scen_names))
+    return ScenarioBatch(
+        c=cat("c"), qdiag=cat("qdiag"), A=None, row_lo=cat("row_lo"),
+        row_hi=cat("row_hi"), lb=cat("lb"), ub=cat("ub"),
+        obj_const=cat("obj_const"), nonant_idx=b0.nonant_idx,
+        integer_mask=cat("integer_mask"), tree=tree,
+        var_names=b0.var_names, var_prob=cat("var_prob"))
+
+
+def stack_group(phs):
+    """GroupArgs of B PH instances of one bucket after their Iter0."""
+    S = phs[0].batch.num_scens
+    dev = phs[0].device
+    dt = phs[0].batch.c.dtype
+
+    def cat(get):
+        return torch.cat([get(ph) for ph in phs])
+
+    def per_scen(get):
+        return torch.tensor([float(get(ph)) for ph in phs], dtype=dt,
+                            device=dev).repeat_interleave(S)
+
+    st0 = phs[0].state
+    state = PHState(
+        x=cat(lambda p: p.state.x), y=cat(lambda p: p.state.y),
+        W=cat(lambda p: p.state.W), xbar=cat(lambda p: p.state.xbar),
+        xsqbar=cat(lambda p: p.state.xsqbar),
+        obj=cat(lambda p: p.state.obj),
+        dual_obj=cat(lambda p: p.state.dual_obj),
+        conv=torch.stack([torch.as_tensor(p.state.conv, device=dev)
+                          for p in phs]),
+        it=tuple(int(p.state.it) for p in phs),
+        solve_iters=tuple(int(p.state.solve_iters) for p in phs),
+        active_frac=st0.active_frac, solve_restarts=st0.solve_restarts)
+    return GroupArgs(
+        state=state, rho=cat(lambda p: p.rho),
+        W_on=per_scen(lambda p: p.W_on)[:, None],
+        prox_on=per_scen(lambda p: p.prox_on)[:, None],
+        lb=cat(lambda p: p.lb_eff), ub=cat(lambda p: p.ub_eff),
+        eps=per_scen(lambda p: p.superstep_eps),
+        prep=stack_preps([p.prep for p in phs], S),
+        batch=stack_batches([p.batch for p in phs]), B=len(phs), S=S)
+
+
+def group_superstep(solver, g: GroupArgs):
+    """One PH iteration of every request of a group: ONE PDHG solve
+    over the B*S scenarios (one kernel launch a chunk for the group),
+    then each request's own x̄ (its tree nodes offset), W update and
+    convergence metric.  Returns the group's next PHState."""
+    st, b, B, S = g.state, g.batch, g.B, g.S
+    c_eff, q_eff = ph_objective_arrays(b, st.W, g.rho, st.xbar,
+                                       W_on=g.W_on, prox_on=g.prox_on)
+    res = solver._solve_impl(g.prep, c_eff, q_eff, g.lb, g.ub, b.obj_const,
+                             st.x, st.y, None, g.eps, per_scenario=True)
+    x_na = b.nonants(res.x)
+    xbar, xsqbar = compute_xbar(b, x_na)
+    W = update_W(st.W, g.rho, x_na, xbar)
+    K = max(x_na.shape[1], 1)
+    per_scen = torch.sum(torch.abs(x_na - xbar), dim=1) / K
+    wp = b.prob * per_scen
+    # each request's metric over its own rows, as convergence_metric
+    # sums them alone
+    conv = torch.stack([torch.sum(wp[i * S:(i + 1) * S]) for i in range(B)])
+    live = (b.prob > 0).reshape(B, S)
+    unconv = (~res.converged).reshape(B, S) & live
+    checks = res.checks.reshape(B, S).amax(dim=1).tolist()
+    ne = solver.check_every
+    return PHState(
+        x=res.x, y=res.y, W=W, xbar=xbar, xsqbar=xsqbar,
+        obj=b.objective(res.x), dual_obj=res.dual_obj, conv=conv,
+        it=tuple(i + 1 for i in st.it),
+        solve_iters=tuple(int(c) * ne for c in checks),
+        active_frac=(torch.sum(unconv, dim=1)
+                     / torch.clamp(torch.sum(live, dim=1), min=1)),
+        solve_restarts=torch.sum(res.restarts.reshape(B, S), dim=1))
+
+
+def unstack_state(state: PHState, i, S):
+    """Request i's own PHState out of a group's."""
+    rows = slice(i * S, (i + 1) * S)
+    return PHState(
+        x=state.x[rows], y=state.y[rows], W=state.W[rows],
+        xbar=state.xbar[rows], xsqbar=state.xsqbar[rows],
+        obj=state.obj[rows], dual_obj=state.dual_obj[rows],
+        conv=state.conv[i], it=state.it[i],
+        solve_iters=state.solve_iters[i],
+        active_frac=state.active_frac[i],
+        solve_restarts=state.solve_restarts[i])
 
 
 class PHBase(SPOpt):

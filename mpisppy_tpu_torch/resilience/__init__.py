@@ -10,18 +10,34 @@
     and WheelSpinner;
   * `chaos` — config- and env-driven fault injectors (crash at a step,
     hang, NaN bound, delayed or dropped writes, hub crash at an
-    iteration).
+    iteration, and the serve layer's replica crash, slow replica and
+    poison request).
 
-Not ported yet: the stream, wheel-ensemble and drain checkpoints
-(ROADMAP.md queue A items 12 and 13).
+Not ported yet: the wheel-ensemble checkpoints (ROADMAP.md queue A
+item 13).
+
+The names below load on first use, so that the serve layer's front
+door (which needs only `restart_delay`) imports no torch.
 """
 
-from .bounds import BoundGuard, PayloadGuard, payload_checksum
-from .chaos import ChaosError, ChaosInjector
-from .checkpoint import (atomic_write, checkpoint_exists,
-                         load_run_checkpoint, restore_hub,
-                         save_run_checkpoint)
-from .supervisor import SpokeSupervisor, restart_delay
+import importlib
+
+_LAZY = {
+    "BoundGuard": "bounds", "PayloadGuard": "bounds",
+    "payload_checksum": "bounds",
+    "ChaosError": "chaos", "ChaosInjector": "chaos",
+    "atomic_write": "checkpoint", "checkpoint_exists": "checkpoint",
+    "load_run_checkpoint": "checkpoint", "restore_hub": "checkpoint",
+    "save_run_checkpoint": "checkpoint",
+    "SpokeSupervisor": "supervisor", "restart_delay": "supervisor",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(name)
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)
 
 
 def wheel_counters(opt_or_hub):

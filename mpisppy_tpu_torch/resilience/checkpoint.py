@@ -22,15 +22,26 @@ RNG state and active size, the block already drawn, the certification
 cursor and, for a shard-backed source, the store's quarantine cursor.
 They too are the JAX package's format, read by either package.
 
+Drain checkpoints (`save_drain_checkpoint`, `load_drain_checkpoint`)
+hold the requests a draining serve replica could not finish, in the JAX
+package's format (an .npz with `drain_format` and an object array of
+request dicts).  The port writes each request's batch as its field dict
+of plain numpy arrays (`convert.to_arrays`: no class of either package
+inside), and reads either that or the JAX package's pickled batches,
+whose classes it maps onto plain records without importing the JAX
+package.
+
 Not ported (ROADMAP.md queue A item 13): the MPMD wheel's ensemble
-checkpoints (`is_wheel_checkpoint` reads their marker only) and the
-serve layer's drain checkpoints.
+checkpoints (`is_wheel_checkpoint` reads their marker only).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import os
+import pickle
+import zipfile
 
 import numpy as np
 import torch
@@ -297,3 +308,108 @@ def is_wheel_checkpoint(path):
         return False
     with np.load(_norm_npz(path), allow_pickle=True) as z:
         return "wheel_format" in z
+
+
+# -- serve drain checkpoints (serve/service.py) -----------------------------
+
+def save_drain_checkpoint(path, requests):
+    """Atomically persist the requests a draining SolverService could
+    not finish: a list of dicts (id, options, scenario_names, model,
+    batch).  Each batch is written as its field dict of host numpy
+    arrays (`convert.to_arrays`), in the JAX package's drain format.  A
+    restarted service warms from this file and resubmits them."""
+    from ..convert import to_arrays
+    reqs = []
+    for r in requests:
+        d = dict(r)
+        b = d.get("batch")
+        if dataclasses.is_dataclass(b):
+            d["batch"] = to_arrays(b)
+        reqs.append(d)
+    arr = np.empty(len(reqs), dtype=object)
+    arr[:] = reqs
+    payload = {"drain_format": np.int64(1), "requests": arr}
+    return _atomic_savez(path, payload)
+
+
+class _Foreign:
+    """A record of a pickled JAX-package object (ScenarioBatch,
+    TreeInfo, SplitA): its state, nothing else."""
+
+    def __init__(self, *args, **kwargs):
+        self.state = {}
+
+    def __setstate__(self, state):
+        if isinstance(state, tuple):        # (dict, slots) form
+            state = {k: v for part in state if part for k, v in
+                     part.items()}
+        self.state = dict(state)
+
+
+def _foreign_class(module, name):
+    return type(name, (_Foreign,), {"__module__": __name__,
+                                    "foreign": f"{module}.{name}"})
+
+
+class _DrainUnpickler(pickle.Unpickler):
+    """Unpickles a drain file's request list: classes of the JAX package
+    become `_Foreign` records (the port never imports it); numpy and
+    the builtins load as usual."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "mpisppy_tpu":
+            return _foreign_class(module, name)
+        return super().find_class(module, name)
+
+
+def _plain(v):
+    """A `_Foreign` record tree as nested field dicts."""
+    if isinstance(v, _Foreign):
+        return {k: _plain(x) for k, x in v.state.items()}
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    return v
+
+
+def _read_requests(path):
+    """The `requests` member of a drain file, unpickled by
+    `_DrainUnpickler`."""
+    with zipfile.ZipFile(_norm_npz(path)) as zf:
+        names = zf.namelist()
+        if "drain_format.npy" not in names:
+            raise ValueError(f"{path} is not a drain checkpoint")
+        with zf.open("requests.npy") as f:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                shape, _, dtype = np.lib.format.read_array_header_1_0(f)
+            else:
+                shape, _, dtype = np.lib.format.read_array_header_2_0(f)
+            if dtype != object:
+                raise ValueError(f"{path}: requests is not a list")
+            arr = _DrainUnpickler(f).load()
+    return list(np.asarray(arr, dtype=object).reshape(shape))
+
+
+def load_drain_checkpoint(path, device="cpu"):
+    """The saved request dicts, in submission order, each batch a port
+    ScenarioBatch on `device` (written by either package).  A truncated
+    or bit-flipped file raises ValueError with the underlying cause —
+    SolverService.warm_from turns that into a structured reject instead
+    of propagating mid-resubmit."""
+    from ..convert import batch_from_arrays
+    try:
+        reqs = _read_requests(path)
+        out = []
+        for r in reqs:
+            d = dict(r) if isinstance(r, dict) else r
+            if isinstance(d, dict) and "batch" in d:
+                d["batch"] = batch_from_arrays(_plain(d["batch"]),
+                                               device=device)
+            out.append(d)
+        return out
+    except ValueError:
+        raise
+    except Exception as exc:
+        raise ValueError(
+            f"corrupt or truncated drain checkpoint {path}: "
+            f"{exc!r}") from exc

@@ -19,6 +19,11 @@
   multiproc mode spawns it) loads no `jax` and no `mpisppy_tpu.*`
   module either, and the spec resolver refuses a module path outside
   the port.
+* The serve layer's front door (`serve/__init__`, `api`, `request`,
+  `router`, `replica`, `net/protocol`, `net/client`) imports no torch
+  at module level (AST), and a fresh interpreter that imports all of
+  them has no torch loaded; the drive above serves a request, a
+  coalesced group and a wire round trip through `serve/`.
 * No silent CPU: without CUDA, the entry points' default device raises.
 """
 
@@ -70,7 +75,13 @@ def test_ast_no_jax_or_jax_package_imports():
     assert {"cylinders", "resilience", "utils", "ops", "opt",
             "models", "telemetry", "extensions", "convergers",
             "fwph", "runtime", "streaming",
-            "confidence_intervals"} <= scanned
+            "confidence_intervals", "serve"} <= scanned
+    serve = {p.relative_to(ROOT / "mpisppy_tpu_torch" / "serve").as_posix()
+             for p in files if "serve" in p.parts}
+    assert {"__init__.py", "api.py", "compile_cache.py", "procpool.py",
+            "procworker.py", "replica.py", "request.py", "router.py",
+            "service.py", "net/__init__.py", "net/client.py",
+            "net/gateway.py", "net/protocol.py"} <= serve
     assert ROOT / "mpisppy_tpu_torch" / "spin_the_wheel.py" in files
     assert ROOT / "mpisppy_tpu_torch" / "log.py" in files
     assert {p.name for p in files if p.parent.name == "telemetry"} == {
@@ -89,6 +100,34 @@ def test_ast_no_jax_or_jax_package_imports():
     assert bad == []
     assert not _forbidden("mpisppy_tpu_torch.ops.pdhg")
     assert _forbidden("mpisppy_tpu.ops.pdhg") and _forbidden("jax.numpy")
+    # the serve front door: no torch and no solver module at module
+    # level, directly (AST) or transitively (a fresh interpreter)
+    heavy = ("torch", "service", "compile_cache", "phbase", "spopt",
+             "ops", "ir", "device")
+    for rel in FRONT_DOOR:
+        tree = ast.parse((ROOT / "mpisppy_tpu_torch" / "serve" / rel)
+                         .read_text())
+        mods = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                mods.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mods.add(node.module or "")
+        assert not {m for m in mods
+                    if set(m.split(".")) & set(heavy)}, (rel, mods)
+    code = ("import sys\n"
+            + "".join(f"import mpisppy_tpu_torch.serve.{m}\n" for m in (
+                "api", "request", "router", "replica", "net.protocol",
+                "net.client"))
+            + "import mpisppy_tpu_torch.serve\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+FRONT_DOOR = ("__init__.py", "api.py", "request.py", "router.py",
+              "replica.py", "net/protocol.py", "net/client.py")
 
 
 _DRIVE = """
@@ -181,6 +220,23 @@ sph = StreamingPH({"PHIterLimit": 2, "stream_block_size": 4,
                   device="cpu")
 sph.stream_main(finalize=False)
 stream = sph.stream_stats()
+# the serve layer: a service's batch of one, a coalesced group and a
+# wire round trip through a gateway
+from mpisppy_tpu_torch.serve.net import Client, Gateway
+from mpisppy_tpu_torch.serve.service import SolverService
+svc = SolverService({"serve_max_batch": 4}, device="cpu")
+sopts = {"PHIterLimit": 2, "pdhg_eps": 1e-6}
+hs = [svc.submit(farmer.build_batch(3, device="cpu"), sopts)
+      for _ in range(3)]
+svc.start()
+served = [svc.result(h, timeout=300)["status"] for h in hs]
+svc.shutdown()
+gw = Gateway({"serve_replicas": 1}, device="cpu").start()
+with Client(*gw.address) as cli:
+    served.append(cli.solve(farmer.build_batch(3, device="cpu"), sopts,
+                            timeout=300)["status"])
+gw.shutdown()
+gw.router.shutdown(timeout=10)
 with open(os.path.join(tdir, "trace.json")) as f:
     rows = [e["args"]["name"] for e in json.load(f)["traceEvents"]
             if e["ph"] == "M"]
@@ -198,10 +254,12 @@ wheel = sorted(m for m in sys.modules
                                 "mpisppy_tpu_torch.scenario_tree",
                                 "mpisppy_tpu_torch.streaming.",
                                 "mpisppy_tpu_torch.confidence_intervals.",
+                                "mpisppy_tpu_torch.serve.",
                                 "mpisppy_tpu_torch.opt.")))
 print(json.dumps({"loaded": loaded, "eobj": eobj, "wheel": wheel,
                   "ef_obj": ama.EF_Obj, "hydro_ef": hama.EF_Obj,
                   "hydro_nodes": sb.batch.tree.num_nodes,
+                  "served": served,
                   "sc_obj": sc_obj,
                   "stream": [stream["blocks_loaded"],
                              len(stream["est_history"])],
@@ -249,6 +307,11 @@ def test_fresh_interpreter_port_run_loads_no_jax():
         "confidence_intervals.multi_seqsampling")} <= set(res["wheel"])
     # Iter0 sweeps the first active sample (10) in 3 blocks of 4
     assert res["stream"] == [5, 1]
+    # the serve layer (ROADMAP.md queue A item 13)
+    assert res["served"] == ["ok"] * 4
+    assert {f"mpisppy_tpu_torch.serve.{m}" for m in (
+        "service", "compile_cache", "router", "replica", "net.gateway",
+        "net.client", "net.protocol")} <= set(res["wheel"])
     assert res["hydro_nodes"] == 4
     outer, inner = res["bounds"]
     assert np.isfinite(outer) and np.isfinite(inner) and outer <= inner

@@ -289,25 +289,37 @@ def test_a_shared_operator_keeps_its_form_at_any_S(S):
 
 def test_route_rule_follows_the_variant():
     """A shared or split A takes the kernel exactly where the register
-    tile covers it or one block holds the whole matrix beside a state of
-    (15 Np + 4 Mp) values (the rule's limits); there the variant is the
-    register tile or the cluster kernel with the matrix resident, which
-    one block alone could hold."""
+    tile covers it or one block holds the whole matrix beside the
+    rule's state (`route_state_bytes`), on fixed shapes either side of
+    that limit; there the variant is the register tile or the cluster
+    kernel with the matrix resident, which one block alone could
+    hold."""
     optin = pdhg_chunk.H100_SMEM_OPTIN
-    for M, N in ((61, 120), (65, 129), (121, 240), (200, 200), (9, 300)):
-        for dt in (F32, F64, BF16):
-            cb, sb = pdhg_chunk.compute_dtype(dt).itemsize, dt.itemsize
-            state = (15 * (-(-N // 128) * 128) + 4 * (-(-M // 32) * 32)) \
-                * cb + M * N * sb
-            reg = M <= 64 and N <= 128
-            want = "kernel" if reg or state <= optin else "matmul"
-            assert pick_route("split", M, N, dt) == want
-            assert pick_route("shared", M, N, dt) == want
-            if want == "kernel":
+    R, K, MM = "registers", "resident", "matmul"
+    want = {  # (M, N): (f32, f64, bf16), the variant's source or matmul
+        (61, 120): (R, R, R),            # farmer cm=10
+        (65, 129): (K, K, K),            # just past the register tile
+        (121, 240): (K, MM, K),          # f64: 232,320 B of A + state
+        (200, 200): (K, MM, K),          # f32: 160 KB of A resident
+        (200, 250): (K, MM, K),          # f32: 218,944 B, under the limit
+        (200, 280): (MM, MM, K),         # f32: 250,624 B, over it
+        (9, 300): (K, K, K),             # few rows, wide
+    }
+    for (M, N), routes in want.items():
+        for dt, src in zip((F32, F64, BF16), routes):
+            route = "matmul" if src == MM else "kernel"
+            assert pick_route("split", M, N, dt) == route, (M, N, dt)
+            assert pick_route("shared", M, N, dt) == route, (M, N, dt)
+            # the card's occupancy readings cover the shapes it was
+            # measured at (tests/h100_cluster_occupancy.json)
+            if route == "kernel" and (M, N) not in ((200, 250), (200, 280)):
                 v = card.pick(1000, M, N, dt)
-                assert v.source == ("registers" if reg else "resident")
-                assert reg or pdhg_chunk.Variant("resident", 1).smem_bytes(
-                    M, N, cb, sb) <= optin
+                assert v.source == src, (M, N, dt)
+                cb, sb = pdhg_chunk.compute_dtype(dt).itemsize, dt.itemsize
+                assert src == R or pdhg_chunk.Variant(
+                    "resident", 1).smem_bytes(M, N, cb, sb) <= optin
+    assert pdhg_chunk.route_state_bytes(200, 280, F32) + 200 * 280 * 4 \
+        == 250624 > optin
     with pytest.raises(ValueError, match="unknown operator form"):
         pick_route("bogus", 61, 120, F32)
     # the split form's register tile keeps a delta patch of 32 values a
